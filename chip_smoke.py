@@ -23,6 +23,20 @@ exits non-zero without a result:
   --max-batch 4, warmed up: concurrent completions of mixed prompt
   lengths (one streamed), /healthz, /metrics, the kernels' launch counts
   over exactly this traffic, and a clean drain.
+- ``kernel_bwd``: the backward kernels B3 (dQ) and B4 (dK/dV) through
+  ``FlashAttention.backward`` against the plain backward on the same
+  inputs, random output and lse cotangents, at the training shapes and
+  edge cases of BWD_CASES (tolerances there); CUDA-event times of each
+  kernel, the plain backward and SDPA's backward, beside the bounds.
+- ``train``: the trainer (models/train.main) at the ``LMConfig()``
+  default, batch 8: 6 steps with checkpoints, then a resume to step 8;
+  ``benchmark_train()`` at the flagship config (3 warm-up + 10 steps):
+  step time, tokens/s, MFU, a falling loss; each of B1, B3, B4 launched
+  exactly once per layer per step; float32 gradients of one
+  flagship-width step (2 layers) with the kernels against plain
+  attention.
+- ``train_profile``: torch.profiler over one flagship training step:
+  device busy time, idle share, the largest kernels, B1/B3/B4's share.
 
 Then the card's name and power limit (nvidia-smi), the ``{"kernels":
 [...]}`` line and, last, ``{"ok": true, "device": {...}}``. Without a
@@ -35,6 +49,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -68,13 +83,42 @@ KERNEL_CASES = [
     ("noncausal_d128_f32", 2, 8, 8, 256, 128, "float32", False),
     ("s200_bf16", 2, 8, 8, 200, 64, "bfloat16", True),
     ("s200_f32", 2, 8, 8, 200, 64, "float32", True),
+    # the flagship training shape (reported as B1's training time)
+    ("train_b8_s2048_d128_bf16", 8, 8, 8, 2048, 128, "bfloat16", True),
 ]
+TRAIN_FWD_CASE = "train_b8_s2048_d128_bf16"
 # Tolerances against the plain version on the same inputs. float32: the
 # two differ only in summation order. bfloat16: the plain version rounds
 # QK^T to bf16 before the softmax (as the reference's jnp code does) and
 # the kernel keeps it in fp32; at unit-normal inputs that moves scaled
 # scores by up to ~1e-2, and O is rounded to bf16 on output.
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+# Backward cases, same fields. The first is the flagship training shape
+# (benchmark_train's config: batch 8, 8 heads, 2048 tokens, d = 128) and
+# gives the times reported for B3 and B4; the second is the trainer's
+# LMConfig() default (d = 64). "pad_d32" runs d = 32 through the
+# zero-padding to the kernels' 64.
+BWD_CASES = [
+    ("train_b8_s2048_d128_bf16", 8, 8, 8, 2048, 128, "bfloat16", True),
+    ("train_b8_s2048_d64_bf16", 8, 8, 8, 2048, 64, "bfloat16", True),
+    ("gqa_d128_bf16", 2, 16, 4, 512, 128, "bfloat16", True),
+    ("gqa_d128_f32", 2, 16, 4, 512, 128, "float32", True),
+    ("noncausal_d128_bf16", 2, 8, 8, 256, 128, "bfloat16", False),
+    ("noncausal_d64_f32", 2, 8, 8, 256, 64, "float32", False),
+    ("s200_bf16", 2, 8, 8, 200, 64, "bfloat16", True),
+    ("s200_f32", 2, 8, 8, 200, 64, "float32", True),
+    ("pad_d32_bf16", 2, 8, 8, 256, 32, "bfloat16", True),
+]
+# Backward tolerances, on max |kernel - plain| / max |plain| of each of
+# dQ, dK, dV. float32: summation order only. bfloat16: the kernels round
+# P and dS to bf16 as the A operands of their tensor-core products (the
+# plain version keeps fp32); the reference's own bf16 backward bar is
+# 0.25 (tests/test_workloads.py:147-150).
+BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# float32 gradients of a whole flagship-width step, kernels vs plain
+# attention, relative to each parameter's largest gradient.
+TRAIN_GRAD_TOL = 1e-3
 
 
 def _jline(obj) -> None:
@@ -175,6 +219,7 @@ def phase_kernel() -> tuple[dict, dict]:
         }
         cases.append(row)
     main = cases[0]
+    train = next(c for c in cases if c["case"] == TRAIN_FWD_CASE)
     summary = {
         "name": attention.FLASH_FWD.name, "route": "cuda",
         "source": attention.FLASH_FWD.source,
@@ -183,8 +228,114 @@ def phase_kernel() -> tuple[dict, dict]:
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": "bytes", "library_ms": main["library_ms"],
         "timed_case": main["case"],
+        "train_case": {k: train[k] for k in (
+            "case", "ms", "plain_ms", "library_ms", "bound_ms")},
     }
     return {"phase": "kernel", "ok": True, "cases": cases}, summary
+
+
+def bwd_bound(b, h, kvh, s, d, dtype, causal, kernel) -> tuple[float, str]:
+    """(least ms, what bounds it) of one backward kernel: B3 ("dq") reads
+    q, k, v, dO, LSE, delta and writes dQ, three products (S, dP, dQ);
+    B4 ("dkv") reads the same and writes dK, dV, four products (S, dP,
+    dV, dK); 2 FLOP per multiply-add over the visible pairs."""
+    import torch
+
+    esize = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    rows_h, rows_kv, products = (3, 2, 3) if kernel == "dq" else (2, 4, 4)
+    nbytes = esize * (rows_h * b * h + rows_kv * b * kvh) * s * d \
+        + 8 * b * h * s
+    pairs = s * (s + 1) // 2 if causal else s * s
+    ops = products * 2.0 * b * h * d * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[f"torch.{dtype}"]
+    return 1e3 * max(t_bytes, t_ops), \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_kernel_bwd() -> tuple[dict, list]:
+    """B3 and B4 through FlashAttention.backward, against the plain
+    backward on the same saved tensors and cotangents."""
+    import torch
+    import torch.nn.functional as F
+
+    from k8s_device_plugin_tpu_torch.ops import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = []
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for name, b, h, kvh, s, d, dt, causal in BWD_CASES:
+        dtype = getattr(torch, dt)
+
+        def rand(*shape):
+            return torch.randn(*shape, device="cuda", generator=gen)
+
+        q, k, v = (rand(b, n, s, d).to(dtype) for n in (h, kvh, kvh))
+        g, g_lse = rand(b, h, s, d).to(dtype), rand(b, h, s)
+        qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+        out, lse = attention.FlashAttention.apply(qq, kk, vv, causal)
+        torch.autograd.backward((out, lse), (g, g_lse))
+        torch.cuda.synchronize()
+        out, lse = out.detach(), lse.detach()
+        want = attention.reference_attention_backward(q, k, v, out, lse, g,
+                                                      g_lse, causal=causal)
+        row = {"case": name, "shape": [b, h, kvh, s, d], "dtype": dt,
+               "causal": causal, "tol": BWD_TOL[dt]}
+        for gname, got, ref in zip(("dq", "dk", "dv"),
+                                   (qq.grad, kk.grad, vv.grad), want):
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"kernel_bwd {name}: {gname} shape "
+                                     f"{tuple(got.shape)} or non-finite")
+            diff = (got.float() - ref.float()).abs().max().item()
+            rel = diff / max(ref.float().abs().max().item(), 1e-30)
+            row[f"rel_err_{gname}"] = rel
+            row[f"max_abs_err_{gname}"] = diff
+            kernel = "dq" if gname == "dq" else "dkv"
+            worst[kernel] = max(worst[kernel], diff)
+            if rel > BWD_TOL[dt]:
+                raise AssertionError(
+                    f"kernel_bwd {name}: {gname} off the plain backward by "
+                    f"{rel:.3g} of its largest value (tolerance "
+                    f"{BWD_TOL[dt]})")
+        if d in (64, 128):
+            delta = attention.attention_delta(out, g, g_lse)
+            row["dq_ms"] = cuda_ms(lambda: attention.flash_bwd_dq_cuda(
+                q, k, v, g, lse, delta, causal))
+            row["dkv_ms"] = cuda_ms(lambda: attention.flash_bwd_dkv_cuda(
+                q, k, v, g, lse, delta, causal))
+            row["plain_ms"] = cuda_ms(
+                lambda: attention.reference_attention_backward(
+                    q, k, v, out, lse, g, g_lse, causal=causal),
+                iters=3, warmup=1)
+            # SDPA's backward alone (the whole dQ, dK, dV), over K/V
+            # expanded to q's heads.
+            qs, ke, ve = (x.clone().requires_grad_() for x in (
+                q, attention.expand_kv(k, h), attention.expand_kv(v, h)))
+            o = F.scaled_dot_product_attention(qs, ke, ve, is_causal=causal)
+            row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                o, (qs, ke, ve), g, retain_graph=True))
+            del o, qs, ke, ve
+            for kernel in ("dq", "dkv"):
+                row[f"{kernel}_bound_ms"], row[f"{kernel}_bound_by"] = \
+                    bwd_bound(b, h, kvh, s, d, dt, causal, kernel)
+        cases.append(row)
+        del q, k, v, g, qq, kk, vv, out, lse, want
+        torch.cuda.empty_cache()
+    main = cases[0]
+    summaries = []
+    for kernel, stats in (("dq", attention.FLASH_BWD_DQ),
+                          ("dkv", attention.FLASH_BWD_DKV)):
+        summaries.append({
+            "name": stats.name, "route": "cuda", "source": stats.source,
+            "replaces": stats.replaces, "max_abs_err": worst[kernel],
+            "ms": main[f"{kernel}_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main[f"{kernel}_bound_ms"],
+            "bound_by": main[f"{kernel}_bound_by"],
+            "library_ms": main["library_ms"], "timed_case": main["case"],
+        })
+    return {"phase": "kernel_bwd", "ok": True, "cases": cases}, summaries
 
 
 @contextlib.contextmanager
@@ -262,12 +413,16 @@ def phase_model() -> dict:
 
 
 def _device_events(prof):
-    """(kernel name, device ms, calls) of every CUDA-side event."""
+    """(kernel name, device ms, calls) of every CUDA-side event. User
+    annotations (``record_function`` ranges such as the optimizer's
+    ``Optimizer.step#AdamW.step``) are skipped: they span kernels that
+    are counted on their own."""
     import torch
 
     out = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -474,6 +629,180 @@ def phase_serve(counters) -> dict:
     }
 
 
+class _Records(logging.Handler):
+    """Collects the messages of the log records it is handed."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _train_counters():
+    from k8s_device_plugin_tpu_torch.ops import attention
+
+    return (attention.FLASH_FWD, attention.FLASH_BWD_DQ,
+            attention.FLASH_BWD_DKV)
+
+
+def _launches_per_step(counters, steps, layers, what):
+    """Each kernel's launches since its count was zeroed; fails unless
+    each ran exactly once per layer per step."""
+    launches = {c.name: c.launches for c in counters}
+    if any(n != steps * layers for n in launches.values()):
+        raise AssertionError(f"train: {what}: launches {launches}, want "
+                             f"{layers} per step for {steps} steps")
+    return launches
+
+
+def phase_train() -> dict:
+    """The trainer with a resume, the flagship benchmark, and float32
+    gradients of a flagship-width step, kernels vs plain attention."""
+    import dataclasses
+    import math
+    import re
+    import shutil
+
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models import train as trainer
+    from k8s_device_plugin_tpu_torch.models import transformer
+
+    counters = _train_counters()
+    res = {"phase": "train"}
+
+    # 1. models/train.main at the LMConfig() default: 6 steps with a
+    #    checkpoint every 3, then a rerun to 8 that resumes after step 5.
+    ckpt = os.path.join(HERE, "build", "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    handler = _Records()
+    records = handler.lines
+    logger = logging.getLogger("tpu-train")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    layers = transformer.LMConfig().num_layers
+    runs = []
+    try:
+        for steps, ran in ((6, 6), (8, 2)):
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            rc = trainer.main(["--steps", str(steps), "--batch-size", "8",
+                               "--checkpoint-dir", ckpt,
+                               "--checkpoint-every", "3"])
+            if rc != 0:
+                raise AssertionError(f"train: trainer exited {rc}")
+            runs.append({"steps": steps, "ran": ran,
+                         "wall_s": time.perf_counter() - t0,
+                         "launches": _launches_per_step(
+                             counters, ran, layers, f"trainer to {steps}")})
+    finally:
+        logger.removeHandler(handler)
+    if "resumed from checkpoint step 5" not in records:
+        raise AssertionError(f"train: no resume line in {records}")
+    losses = [float(m) for line in records
+              for m in re.findall(r"(?:^step \d+ loss|final loss) (\S+)",
+                                  line)]
+    if len(losses) < 3 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: losses {losses}")
+    res["trainer"] = {"config": "LMConfig()", "batch": 8, "runs": runs,
+                      "resumed_from": 5, "losses": losses,
+                      "log": [m for m in records if "step" in m]}
+
+    # 2. benchmark_train() at the flagship config.
+    for c in counters:
+        c.launches = 0
+    bench = transformer.benchmark_train(steps=10, warmup=3)
+    flagship = transformer.flagship_config()
+    bench["launches"] = _launches_per_step(
+        counters, 13, flagship.num_layers, "benchmark_train")
+    bench["step_ms"] = 1e3 * bench["seconds"] / bench["steps"]
+    bench["flops_per_step"] = transformer.train_flops_per_step(flagship, 8)
+    if not bench["final_loss"] < bench["first_loss"]:
+        raise AssertionError(f"train: loss did not fall: {bench}")
+    res["benchmark"] = bench
+    torch.cuda.empty_cache()
+
+    # 3. float32 gradients of one flagship-width step (2 layers, batch 2),
+    #    the kernels against plain attention.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(flagship, num_layers=2, dtype=torch.float32)
+    model = transformer.DecoderLM(cfg, param_dtype=torch.float32).cuda()
+    transformer.init_params(model, seed=0)
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, cfg.max_seq_len),
+                         generator=gen).cuda()
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss = transformer.loss_fn(model, toks)
+        loss.backward()
+        return loss.item(), [p.grad.clone() for p in model.parameters()]
+
+    loss_k, got = grads()
+    with plain_attention():
+        loss_p, want = grads()
+    rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+              for a, b in zip(got, want))
+    if rel > TRAIN_GRAD_TOL or abs(loss_k - loss_p) > 1e-4:
+        raise AssertionError(f"train: fp32 grads kernel vs plain {rel:.3g} "
+                             f"(tol {TRAIN_GRAD_TOL}), loss {loss_k} vs "
+                             f"{loss_p}")
+    res["fp32_grads"] = {"layers": 2, "batch": 2, "loss_kernel": loss_k,
+                         "loss_plain": loss_p, "max_rel_err": rel,
+                         "tol": TRAIN_GRAD_TOL}
+    del model, got, want
+    torch.cuda.empty_cache()
+    res["ok"] = True
+    return res
+
+
+def phase_train_profile() -> dict:
+    """torch.profiler over one flagship training step (bf16, batch 8):
+    device busy time, idle share, the largest kernels, B1/B3/B4's
+    share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from k8s_device_plugin_tpu_torch.models import transformer
+
+    cfg = transformer.flagship_config()
+    step, init = transformer.make_train_step(cfg, "cuda")
+    model, opt = init(0)
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (8, cfg.max_seq_len),
+                         generator=gen).cuda()
+    step(model, opt, toks)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, opt, toks)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = _device_events(prof)
+    busy = sum(ms for _, ms, _ in events)
+    share = {}
+    for key, label in (("flash_fwd", "B1"), ("bwd_dq", "B3"),
+                       ("bwd_dkv", "B4")):
+        ms = sum(t for k, t, _ in events if key in k)
+        share[label] = {"ms": ms, "calls": sum(n for k, _, n in events
+                                               if key in k),
+                        "share_of_busy": ms / busy if busy else None}
+    del model, opt
+    torch.cuda.empty_cache()
+    return {
+        "phase": "train_profile", "ok": True, "config": "flagship",
+        "batch": 8, "wall_ms": wall_ms, "device_busy_ms": busy,
+        "device_idle_share": 1.0 - busy / wall_ms if busy else None,
+        "kernels": len(events), "launches": sum(n for _, _, n in events),
+        "attention": share,
+        "top": [[k[:80], ms, n] for k, ms, n in events[:10]],
+    }
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -503,13 +832,22 @@ def main() -> int:
     _jline(phase_build())
     line, summary = phase_kernel()
     _jline(line)
+    line, bwd_summaries = phase_kernel_bwd()
+    _jline(line)
     _jline(phase_model())
     _jline(phase_profile())
     serve = phase_serve([attention.FLASH_FWD])
     _jline(serve)
     summary["launches"] = serve["launches"]["flash_fwd"]
+    train = phase_train()
+    _jline(train)
+    launches = train["benchmark"]["launches"]
+    summary["launches_train"] = launches["flash_fwd"]
+    for s in bwd_summaries:
+        s["launches"] = launches[s["name"]]
+    _jline(phase_train_profile())
     print(smi_line(), flush=True)
-    _jline({"kernels": [summary]})
+    _jline({"kernels": [summary, *bwd_summaries]})
     _jline({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,0 +1,844 @@
+// Flash-attention backward for Hopper (sm_90a), CUDA C++: kernels B3 (dQ)
+// and B4 (dK/dV).
+//
+// Replaces the Pallas TPU kernels of k8s_device_plugin_tpu/ops/attention.py
+// driven by `_flash_backward`:
+// - B3 `_bwd_dq_kernel` (attention.py:221, pallas_call at :382):
+//   dQ = scale * sum_k dS K;
+// - B4 `_bwd_dkv_kernel` (attention.py:275, pallas_call at :413):
+//   dV = sum_q P^T dO, dK = scale * sum_q dS^T Q.
+// Both recompute the score tile from Q, K and the forward's saved
+// logsumexp: S = scale * Q K^T (masked with -1e30 above the diagonal when
+// causal), P = exp(S - LSE), dP = dO V^T, dS = P * (dP - delta), where
+// delta = rowsum(dO * O) - g_lse comes in precomputed (the reference
+// computes it in XLA outside its kernels; the port in plain torch).
+//
+// What differs from the TPU kernels, and why:
+// - The TPU walks the reduction axis of each kernel as a sequential grid
+//   dimension and carries the accumulator in VMEM scratch. Blocks here run
+//   in no order, so each block owns its output tile and loops itself:
+//   B3 one block per (batch*head, 64 q rows), looping over K/V tiles up to
+//   the diagonal when causal; B4 one block per (batch, KV HEAD, 64 keys),
+//   looping over that kv head's n_rep q heads and, when causal, over the
+//   q tiles from the diagonal on (the TPU's index-map clamps at :396-405
+//   become loop bounds: skipped tiles are never loaded).
+// - GQA: B4 sums the n_rep q heads that share a kv head inside the block,
+//   in fp32 registers, so dK/dV come out unexpanded ([b, kv_heads, s, d]),
+//   with no atomics and no expanded buffer: the result is deterministic.
+//   B3 reads kv head h / n_rep in place, as the forward does.
+// - LSE and delta are one fp32 per row ([b, h, s]); the TPU's 128-lane
+//   broadcast of them (:366-367) was a Mosaic constraint.
+// - Any sequence length: tiles straddling the ragged edge or the diagonal
+//   mask inside (probabilities set to 0); rows past the end are not stored.
+// - d = 64 and d = 128 are compiled as they are; the wrapper zero-pads
+//   other head dims up to one of them (exact: zero lanes add nothing).
+//
+// What bounds them on an H100: at the flagship training shape
+// [8, 8, 2048, 128] bf16 causal, B3 does three products (S, dP, dQ) and
+// B4 four (S, dP, dV, dK), each 2*b*h*d*s(s+1)/2 FLOP: 0.104 ms and
+// 0.139 ms at 989 TFLOP/s, against ~0.05 ms and ~0.06 ms to move their
+// bytes at 3.35 TB/s. Both are compute-bound at the roofline.
+//
+// Two implementations, by input type, as in flash_fwd.cu:
+// - bfloat16: tensor cores through mma.sync m16n8k16 with fp32
+//   accumulation. Four warps own 16 rows each (q rows in B3, keys in B4).
+//   S and dP land in fp32 accumulators; P and dS are rounded to bf16 and
+//   repacked in registers as the A operand of the next product, so no
+//   score tile touches shared memory. Operand tiles are staged in shared
+//   memory with plain 16-byte loads; B fragments of row-major tiles read
+//   along k are gathered from 16-bit loads. wgmma, TMA and pipelined
+//   copies are later work.
+// - float32: FP32 FMA on the CUDA cores (tensor cores would be TF32), 256
+//   threads each owning a 4x4 micro-tile of the 64x64 score tile, dS (and
+//   P) passed through shared memory to the accumulating products.
+// Times against the bound are in PERF.md.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+// Rows a block owns: q rows (B3), keys (B4). Masked probabilities are set
+// to 0 directly, which is what exp(-1e30 - LSE) gives the reference.
+constexpr int kBlk = 64;
+
+// ---------------------------------------------------------------------------
+// bfloat16: mma.sync m16n8k16 (fp32 accumulate)
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A fragment (16 x 16, m x k) of a tile stored row-major [m][k] at p.
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* p, int S,
+                                       int g, int t) {
+  const bf16* r = p + g * S + 2 * t;
+  a[0] = ld32(r);
+  a[1] = ld32(r + 8 * S);
+  a[2] = ld32(r + 8);
+  a[3] = ld32(r + 8 * S + 8);
+}
+
+// B fragment (16 x 8, k x n) of a tile stored [n][k] at p: pairs along k.
+__device__ __forceinline__ void frag_b_nk(uint32_t& b0, uint32_t& b1,
+                                          const bf16* p, int S, int g, int t) {
+  const bf16* r = p + g * S + 2 * t;
+  b0 = ld32(r);
+  b1 = ld32(r + 8);
+}
+
+// B fragment (16 x 8, k x n) of a tile stored [k][n] at p: two 16-bit
+// loads per register.
+__device__ __forceinline__ void frag_b_kn(uint32_t& b0, uint32_t& b1,
+                                          const bf16* p, int S, int g, int t) {
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+  const int r = 2 * t;
+  b0 = (uint32_t)h[r * S + g] | ((uint32_t)h[(r + 1) * S + g] << 16);
+  b1 = (uint32_t)h[(r + 8) * S + g] | ((uint32_t)h[(r + 9) * S + g] << 16);
+}
+
+// The fp32 accumulators of n-tiles 2kk and 2kk+1 (a 16 x 16 block of C)
+// as the bf16 A fragment of k-step kk.
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Rows [row0, row0 + ROWS) of a [rows, D] bf16 matrix into a [ROWS][D + 8]
+// shared tile, 16 bytes per load, zeros past `rows`.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
+                                          int rows) {
+  constexpr int S = D + 8;
+  for (int idx = threadIdx.x; idx < ROWS * (D / 8); idx += kMmaThreads) {
+    const int r = idx / (D / 8);
+    const int c = (idx % (D / 8)) * 8;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < rows)
+      x = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
+    *reinterpret_cast<uint4*>(dst + r * S + c) = x;
+  }
+}
+
+template <int D>
+constexpr size_t dq_bf16_smem() {
+  // Q, dO, K, V tiles of [64][D + 8] bf16
+  return sizeof(bf16) * 4 * kBlk * (D + 8);
+}
+
+// B3, bf16: one block per (batch*head, 64 q rows).
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kMmaThreads)
+bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   int heads, int kv_heads, int seq_q, int seq_k,
+                   float scale) {
+  constexpr int S = D + 8;
+  constexpr int KS = D / 16;    // k-steps over d
+  constexpr int NT = kBlk / 8;  // key n-tiles of S and dP
+  constexpr int DT = D / 8;     // d n-tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + kBlk * S;
+  bf16* ks = dos + kBlk * S;
+  bf16* vs = ks + kBlk * S;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int q0 = blockIdx.x * kBlk;
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int kvh = h / (heads / kv_heads);
+  const size_t kv_off = (size_t)(b * kv_heads + kvh) * seq_k * D;
+  const bf16* kp = k + kv_off;
+  const bf16* vp = v + kv_off;
+
+  load_tile<D, kBlk>(qs, q + (size_t)bh * seq_q * D, q0, seq_q);
+  load_tile<D, kBlk>(dos, dout + (size_t)bh * seq_q * D, q0, seq_q);
+
+  // Each lane holds two q rows of its warp's 16: g ("lo") and g + 8 ("hi").
+  const int row_lo = q0 + warp * 16 + g;
+  const int row_hi = row_lo + 8;
+  const float* lse_bh = lse + (size_t)bh * seq_q;
+  const float* delta_bh = delta + (size_t)bh * seq_q;
+  const float lse_lo = row_lo < seq_q ? lse_bh[row_lo] : 0.f;
+  const float lse_hi = row_hi < seq_q ? lse_bh[row_hi] : 0.f;
+  const float del_lo = row_lo < seq_q ? delta_bh[row_lo] : 0.f;
+  const float del_hi = row_hi < seq_q ? delta_bh[row_hi] : 0.f;
+
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[dt][j] = 0.f;
+
+  // Causal: keys past the tile's last q row are all masked.
+  const int k_end = CAUSAL ? min(seq_k, q0 + kBlk) : seq_k;
+  for (int k0 = 0; k0 < k_end; k0 += kBlk) {
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<D, kBlk>(ks, kp, k0, seq_k);
+    load_tile<D, kBlk>(vs, vp, k0, seq_k);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T (K and V are [key][d]: B stored [n][k]).
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[nt][j] = dp[nt][j] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t aq[4], ado[4];
+      frag_a(aq, qs + warp * 16 * S + kk * 16, S, g, t);
+      frag_a(ado, dos + warp * 16 * S + kk * 16, S, g, t);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t b0, b1;
+        frag_b_nk(b0, b1, ks + nt * 8 * S + kk * 16, S, g, t);
+        mma_bf16(s[nt], aq, b0, b1);
+        frag_b_nk(b0, b1, vs + nt * 8 * S + kk * 16, S, g, t);
+        mma_bf16(dp[nt], ado, b0, b1);
+      }
+    }
+
+    // P = exp(scale * S - LSE) where visible, else 0; dS = P (dP - delta),
+    // kept in s[].
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kc = k0 + nt * 8 + 2 * t + j;
+        const bool in = kc < seq_k;
+        const float p_lo = (in && (!CAUSAL || kc <= row_lo))
+                               ? expf(s[nt][j] * scale - lse_lo) : 0.f;
+        const float p_hi = (in && (!CAUSAL || kc <= row_hi))
+                               ? expf(s[nt][2 + j] * scale - lse_hi) : 0.f;
+        s[nt][j] = p_lo * (dp[nt][j] - del_lo);
+        s[nt][2 + j] = p_hi * (dp[nt][2 + j] - del_hi);
+      }
+    }
+
+    // dQ += dS K: dS is the A operand (k = key); K [key][d] is B stored
+    // [k][n].
+#pragma unroll
+    for (int kk = 0; kk < kBlk / 16; ++kk) {
+      uint32_t a[4];
+      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        uint32_t b0, b1;
+        frag_b_kn(b0, b1, ks + kk * 16 * S + dt * 8, S, g, t);
+        mma_bf16(acc[dt], a, b0, b1);
+      }
+    }
+  }
+
+  bf16* o_lo = dq + ((size_t)bh * seq_q + row_lo) * D;
+  bf16* o_hi = o_lo + 8 * D;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int col = dt * 8 + 2 * t;
+    if (row_lo < seq_q)
+      *reinterpret_cast<__nv_bfloat162*>(o_lo + col) =
+          __floats2bfloat162_rn(acc[dt][0] * scale, acc[dt][1] * scale);
+    if (row_hi < seq_q)
+      *reinterpret_cast<__nv_bfloat162*>(o_hi + col) =
+          __floats2bfloat162_rn(acc[dt][2] * scale, acc[dt][3] * scale);
+  }
+}
+
+// q rows per step of B4's loop: 32 at d = 128 keeps the dK and dV
+// accumulators (2 x 64 fp32 per lane) and the score tiles in registers.
+template <int D>
+__host__ __device__ constexpr int dkv_bq() {
+  return D == 128 ? 32 : 64;
+}
+
+template <int D>
+constexpr size_t dkv_bf16_smem() {
+  // K, V tiles [64][D + 8], Q, dO tiles [BQ][D + 8] bf16; LSE, delta [BQ]
+  return sizeof(bf16) * (2 * kBlk + 2 * dkv_bq<D>()) * (D + 8) +
+         sizeof(float) * 2 * dkv_bq<D>();
+}
+
+// B4, bf16: one block per (batch, kv head, 64 keys).
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kMmaThreads)
+bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int heads, int kv_heads, int seq_q,
+                    int seq_k, float scale) {
+  constexpr int BQ = dkv_bq<D>();
+  constexpr int S = D + 8;
+  constexpr int KS = D / 16;  // k-steps over d
+  constexpr int NT = BQ / 8;  // q n-tiles of S^T and dP^T
+  constexpr int DT = D / 8;   // d n-tiles of dK and dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + kBlk * S;
+  bf16* qs = vs + kBlk * S;
+  bf16* dos = qs + BQ * S;
+  float* lse_s = reinterpret_cast<float*>(dos + BQ * S);
+  float* delta_s = lse_s + BQ;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int k0 = blockIdx.x * kBlk;
+  const int bkv = blockIdx.y;
+  const int b = bkv / kv_heads;
+  const int kvh = bkv - b * kv_heads;
+  const int n_rep = heads / kv_heads;
+  const size_t kv_off = (size_t)bkv * seq_k * D;
+
+  load_tile<D, kBlk>(ks, k + kv_off, k0, seq_k);
+  load_tile<D, kBlk>(vs, v + kv_off, k0, seq_k);
+
+  // Each lane holds two keys of its warp's 16: g ("lo") and g + 8 ("hi").
+  const int key_lo = k0 + warp * 16 + g;
+  const int key_hi = key_lo + 8;
+  float dka[DT][4], dva[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dka[dt][j] = dva[dt][j] = 0.f;
+
+  for (int r = 0; r < n_rep; ++r) {
+    const int bh = b * heads + kvh * n_rep + r;
+    const bf16* qp = q + (size_t)bh * seq_q * D;
+    const bf16* dop = dout + (size_t)bh * seq_q * D;
+    const float* lse_bh = lse + (size_t)bh * seq_q;
+    const float* delta_bh = delta + (size_t)bh * seq_q;
+    // Causal: q rows before this key tile see none of its keys.
+    for (int q0 = CAUSAL ? k0 : 0; q0 < seq_q; q0 += BQ) {
+      __syncthreads();  // the previous tile's readers are done
+      load_tile<D, BQ>(qs, qp, q0, seq_q);
+      load_tile<D, BQ>(dos, dop, q0, seq_q);
+      if (threadIdx.x < BQ) {
+        const int row = q0 + threadIdx.x;
+        lse_s[threadIdx.x] = row < seq_q ? lse_bh[row] : 0.f;
+        delta_s[threadIdx.x] = row < seq_q ? delta_bh[row] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T (Q and dO are [q][d]: B stored
+      // [n][k]).
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[nt][j] = dp[nt][j] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ak[4], av[4];
+        frag_a(ak, ks + warp * 16 * S + kk * 16, S, g, t);
+        frag_a(av, vs + warp * 16 * S + kk * 16, S, g, t);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t b0, b1;
+          frag_b_nk(b0, b1, qs + nt * 8 * S + kk * 16, S, g, t);
+          mma_bf16(s[nt], ak, b0, b1);
+          frag_b_nk(b0, b1, dos + nt * 8 * S + kk * 16, S, g, t);
+          mma_bf16(dp[nt], av, b0, b1);
+        }
+      }
+
+      // P^T where visible (key <= q, q in range), else 0, kept in s[];
+      // dS^T = P^T (dP^T - delta[q]), kept in dp[].
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = nt * 8 + 2 * t + j;
+          const int qc = q0 + col;
+          const bool in = qc < seq_q;
+          const float lc = lse_s[col];
+          const float dc = delta_s[col];
+          const float p_lo = (in && (!CAUSAL || key_lo <= qc))
+                                 ? expf(s[nt][j] * scale - lc) : 0.f;
+          const float p_hi = (in && (!CAUSAL || key_hi <= qc))
+                                 ? expf(s[nt][2 + j] * scale - lc) : 0.f;
+          s[nt][j] = p_lo;
+          s[nt][2 + j] = p_hi;
+          dp[nt][j] = p_lo * (dp[nt][j] - dc);
+          dp[nt][2 + j] = p_hi * (dp[nt][2 + j] - dc);
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: the A operands are in registers
+      // (k = q); dO and Q [q][d] are B stored [k][n].
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        uint32_t pa[4], da[4];
+        c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+        c_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt) {
+          uint32_t b0, b1;
+          frag_b_kn(b0, b1, dos + kk * 16 * S + dt * 8, S, g, t);
+          mma_bf16(dva[dt], pa, b0, b1);
+          frag_b_kn(b0, b1, qs + kk * 16 * S + dt * 8, S, g, t);
+          mma_bf16(dka[dt], da, b0, b1);
+        }
+      }
+    }
+  }
+
+  bf16* dk_lo = dk + kv_off + (size_t)key_lo * D;
+  bf16* dv_lo = dv + kv_off + (size_t)key_lo * D;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int col = dt * 8 + 2 * t;
+    if (key_lo < seq_k) {
+      *reinterpret_cast<__nv_bfloat162*>(dk_lo + col) =
+          __floats2bfloat162_rn(dka[dt][0] * scale, dka[dt][1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv_lo + col) =
+          __floats2bfloat162_rn(dva[dt][0], dva[dt][1]);
+    }
+    if (key_hi < seq_k) {
+      *reinterpret_cast<__nv_bfloat162*>(dk_lo + 8 * D + col) =
+          __floats2bfloat162_rn(dka[dt][2] * scale, dka[dt][3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv_lo + 8 * D + col) =
+          __floats2bfloat162_rn(dva[dt][2], dva[dt][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32: FP32 FMA on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kFmaThreads = 256;  // 16 x 16 threads, 4 x 4 micro-tiles
+
+// Rows [row0, row0 + 64) of a [rows, D] fp32 matrix into shared memory:
+// row-major with stride D + 1 (`rm`, scalar reads by row), transposed
+// [D][64] (`tr`, float4 reads along rows) and/or row-major with stride D
+// (`rv`, float4 reads along d); null destinations are skipped. Zeros past
+// `rows`.
+template <int D>
+__device__ __forceinline__ void load_f32(const float* src, int row0, int rows,
+                                         float* rm, float* tr, float* rv) {
+  for (int idx = threadIdx.x; idx < kBlk * (D / 4); idx += kFmaThreads) {
+    const int r = idx % kBlk;  // row fastest: conflict-free transposed stores
+    const int c = (idx / kBlk) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < rows)
+      x = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
+    if (rm) {
+      float* p = rm + r * (D + 1) + c;
+      p[0] = x.x;
+      p[1] = x.y;
+      p[2] = x.z;
+      p[3] = x.w;
+    }
+    if (tr) {
+      tr[(c + 0) * kBlk + r] = x.x;
+      tr[(c + 1) * kBlk + r] = x.y;
+      tr[(c + 2) * kBlk + r] = x.z;
+      tr[(c + 3) * kBlk + r] = x.w;
+    }
+    if (rv) *reinterpret_cast<float4*>(rv + r * D + c) = x;
+  }
+}
+
+// Two 64 x 64 products over d at once for this thread's 4 x 4 micro-tile:
+// x[i][j] += A1[row i][d] B1[col j][d], y[i][j] += A2[row i][d] B2[col j][d],
+// with A row-major (stride D + 1) and B transposed ([D][64]).
+template <int D>
+__device__ __forceinline__ void two_products(float (&x)[4][4],
+                                             float (&y)[4][4], const float* a1,
+                                             const float* b1, const float* a2,
+                                             const float* b2, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[i][j] = y[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float u[4], w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      u[i] = a1[(ty * 4 + i) * (D + 1) + d];
+      w[i] = a2[(ty * 4 + i) * (D + 1) + d];
+    }
+    const float4 p = *reinterpret_cast<const float4*>(b1 + d * kBlk + tx * 4);
+    const float4 o = *reinterpret_cast<const float4*>(b2 + d * kBlk + tx * 4);
+    const float pv[4] = {p.x, p.y, p.z, p.w};
+    const float ov[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        x[i][j] = fmaf(u[i], pv[j], x[i][j]);
+        y[i][j] = fmaf(w[i], ov[j], y[i][j]);
+      }
+  }
+}
+
+// acc[i][gc*4 + j] += sum_kk T[row i][kk] M[kk][gc*64 + tx*4 + j], T a
+// [64][65] shared tile, M row-major [64][D].
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[4][D / 16],
+                                           const float* tile, const float* m,
+                                           int ty, int tx) {
+#pragma unroll 4
+  for (int kk = 0; kk < kBlk; ++kk) {
+    float a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = tile[(ty * 4 + i) * (kBlk + 1) + kk];
+#pragma unroll
+    for (int gc = 0; gc < D / 64; ++gc) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(m + kk * D + gc * 64 + tx * 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][gc * 4 + 0] = fmaf(a[i], v.x, acc[i][gc * 4 + 0]);
+        acc[i][gc * 4 + 1] = fmaf(a[i], v.y, acc[i][gc * 4 + 1]);
+        acc[i][gc * 4 + 2] = fmaf(a[i], v.z, acc[i][gc * 4 + 2]);
+        acc[i][gc * 4 + 3] = fmaf(a[i], v.w, acc[i][gc * 4 + 3]);
+      }
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[4][D / 16],
+                                           float mul, int row0, int rows,
+                                           int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty * 4 + i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int gc = 0; gc < D / 64; ++gc)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dst[(size_t)r * D + gc * 64 + tx * 4 + j] = acc[i][gc * 4 + j] * mul;
+  }
+}
+
+template <int D>
+constexpr size_t dq_f32_smem() {
+  // Q, dO [64][D+1]; K^T, V^T [D][64]; K [64][D]; dS [64][65]; LSE, delta
+  return sizeof(float) * (2 * kBlk * (D + 1) + 2 * D * kBlk + kBlk * D +
+                          kBlk * (kBlk + 1) + 2 * kBlk);
+}
+
+// B3, float32: one block per (batch*head, 64 q rows).
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kFmaThreads)
+bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dq,
+                  int heads, int kv_heads, int seq_q, int seq_k, float scale) {
+  extern __shared__ __align__(16) float fsmem[];
+  float* qs = fsmem;                      // [64][D+1]
+  float* dos = qs + kBlk * (D + 1);       // [64][D+1]
+  float* kt = dos + kBlk * (D + 1);       // [D][64]
+  float* vt = kt + D * kBlk;              // [D][64]
+  float* kr = vt + D * kBlk;              // [64][D]
+  float* dss = kr + kBlk * D;             // [64][65]
+  float* lse_s = dss + kBlk * (kBlk + 1);
+  float* delta_s = lse_s + kBlk;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;  // key columns (S), d columns (dQ)
+  const int ty = tid >> 4;  // q rows ty*4 .. ty*4+3
+  const int q0 = blockIdx.x * kBlk;
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int kvh = h / (heads / kv_heads);
+  const size_t kv_off = (size_t)(b * kv_heads + kvh) * seq_k * D;
+
+  load_f32<D>(q + (size_t)bh * seq_q * D, q0, seq_q, qs, nullptr, nullptr);
+  load_f32<D>(dout + (size_t)bh * seq_q * D, q0, seq_q, dos, nullptr, nullptr);
+  if (tid < kBlk) {
+    const int row = q0 + tid;
+    lse_s[tid] = row < seq_q ? lse[(size_t)bh * seq_q + row] : 0.f;
+    delta_s[tid] = row < seq_q ? delta[(size_t)bh * seq_q + row] : 0.f;
+  }
+
+  float acc[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+
+  const int k_end = CAUSAL ? min(seq_k, q0 + kBlk) : seq_k;
+  for (int k0 = 0; k0 < k_end; k0 += kBlk) {
+    __syncthreads();  // the previous tile's readers are done
+    load_f32<D>(k + kv_off, k0, seq_k, nullptr, kt, kr);
+    load_f32<D>(v + kv_off, k0, seq_k, nullptr, vt, nullptr);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    two_products<D>(s, dp, qs, kt, dos, vt, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + tx * 4 + j;
+        const bool keep = kj < seq_k && (!CAUSAL || kj <= qi);
+        const float p =
+            keep ? expf(s[i][j] * scale - lse_s[ty * 4 + i]) : 0.f;
+        dss[(ty * 4 + i) * (kBlk + 1) + tx * 4 + j] =
+            p * (dp[i][j] - delta_s[ty * 4 + i]);
+      }
+    }
+    __syncthreads();
+    accumulate<D>(acc, dss, kr, ty, tx);
+  }
+  store_rows<D>(dq + (size_t)bh * seq_q * D, acc, scale, q0, seq_q, ty, tx);
+}
+
+template <int D>
+constexpr size_t dkv_f32_smem() {
+  // K, V [64][D+1]; Q^T, dO^T [D][64]; Q, dO [64][D]; P / dS [64][65];
+  // LSE, delta
+  return sizeof(float) * (2 * kBlk * (D + 1) + 2 * D * kBlk + 2 * kBlk * D +
+                          kBlk * (kBlk + 1) + 2 * kBlk);
+}
+
+// B4, float32: one block per (batch, kv head, 64 keys).
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kFmaThreads)
+bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int heads, int kv_heads, int seq_q,
+                   int seq_k, float scale) {
+  extern __shared__ __align__(16) float fsmem[];
+  float* ks = fsmem;                 // [64][D+1]
+  float* vs = ks + kBlk * (D + 1);   // [64][D+1]
+  float* qt = vs + kBlk * (D + 1);   // [D][64]
+  float* dot = qt + D * kBlk;        // [D][64]
+  float* qr = dot + D * kBlk;        // [64][D]
+  float* dor = qr + kBlk * D;        // [64][D]
+  float* buf = dor + kBlk * D;       // [64][65]: P^T, then dS^T
+  float* lse_s = buf + kBlk * (kBlk + 1);
+  float* delta_s = lse_s + kBlk;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;  // q columns (S^T), d columns (dK, dV)
+  const int ty = tid >> 4;  // keys ty*4 .. ty*4+3
+  const int k0 = blockIdx.x * kBlk;
+  const int bkv = blockIdx.y;
+  const int b = bkv / kv_heads;
+  const int kvh = bkv - b * kv_heads;
+  const int n_rep = heads / kv_heads;
+  const size_t kv_off = (size_t)bkv * seq_k * D;
+
+  load_f32<D>(k + kv_off, k0, seq_k, ks, nullptr, nullptr);
+  load_f32<D>(v + kv_off, k0, seq_k, vs, nullptr, nullptr);
+
+  float dka[4][D / 16], dva[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) dka[i][c] = dva[i][c] = 0.f;
+
+  for (int r = 0; r < n_rep; ++r) {
+    const int bh = b * heads + kvh * n_rep + r;
+    const float* qp = q + (size_t)bh * seq_q * D;
+    const float* dop = dout + (size_t)bh * seq_q * D;
+    for (int q0 = CAUSAL ? k0 : 0; q0 < seq_q; q0 += kBlk) {
+      __syncthreads();  // the previous tile's readers are done
+      load_f32<D>(qp, q0, seq_q, nullptr, qt, qr);
+      load_f32<D>(dop, q0, seq_q, nullptr, dot, dor);
+      if (tid < kBlk) {
+        const int row = q0 + tid;
+        lse_s[tid] = row < seq_q ? lse[(size_t)bh * seq_q + row] : 0.f;
+        delta_s[tid] = row < seq_q ? delta[(size_t)bh * seq_q + row] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T, dP^T = V dO^T
+      float s[4][4], dp[4][4];
+      two_products<D>(s, dp, ks, qt, vs, dot, ty, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + ty * 4 + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qc = q0 + tx * 4 + j;
+          const bool keep = qc < seq_q && (!CAUSAL || key <= qc);
+          const float p =
+              keep ? expf(s[i][j] * scale - lse_s[tx * 4 + j]) : 0.f;
+          buf[(ty * 4 + i) * (kBlk + 1) + tx * 4 + j] = p;
+          dp[i][j] = p * (dp[i][j] - delta_s[tx * 4 + j]);
+        }
+      }
+      __syncthreads();
+      accumulate<D>(dva, buf, dor, ty, tx);  // dV += P^T dO
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          buf[(ty * 4 + i) * (kBlk + 1) + tx * 4 + j] = dp[i][j];
+      __syncthreads();
+      accumulate<D>(dka, buf, qr, ty, tx);  // dK += dS^T Q (scale below)
+    }
+  }
+  store_rows<D>(dk + kv_off, dka, scale, k0, seq_k, ty, tx);
+  store_rows<D>(dv + kv_off, dva, 1.f, k0, seq_k, ty, tx);
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;
+  const float* delta;
+  void* dq;
+  void* dk;
+  void* dv;
+  int batch, heads, kv_heads, seq_q, seq_k;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int D, bool CAUSAL>
+int launch_dq(int dtype, const Args& a) {
+  const dim3 grid((a.seq_q + kBlk - 1) / kBlk, a.batch * a.heads);
+  int err;
+  if (dtype == 0) {
+    auto kernel = bwd_dq_f32_kernel<D, CAUSAL>;
+    if ((err = set_smem(kernel, dq_f32_smem<D>())) != 0) return err;
+    kernel<<<grid, kFmaThreads, dq_f32_smem<D>(), a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, static_cast<float*>(a.dq), a.heads, a.kv_heads,
+        a.seq_q, a.seq_k, a.scale);
+  } else if (dtype == 1) {
+    auto kernel = bwd_dq_bf16_kernel<D, CAUSAL>;
+    if ((err = set_smem(kernel, dq_bf16_smem<D>())) != 0) return err;
+    kernel<<<grid, kMmaThreads, dq_bf16_smem<D>(), a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        a.lse, a.delta, static_cast<bf16*>(a.dq), a.heads, a.kv_heads,
+        a.seq_q, a.seq_k, a.scale);
+  } else {
+    return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool CAUSAL>
+int launch_dkv(int dtype, const Args& a) {
+  const dim3 grid((a.seq_k + kBlk - 1) / kBlk, a.batch * a.kv_heads);
+  int err;
+  if (dtype == 0) {
+    auto kernel = bwd_dkv_f32_kernel<D, CAUSAL>;
+    if ((err = set_smem(kernel, dkv_f32_smem<D>())) != 0) return err;
+    kernel<<<grid, kFmaThreads, dkv_f32_smem<D>(), a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+        a.heads, a.kv_heads, a.seq_q, a.seq_k, a.scale);
+  } else if (dtype == 1) {
+    auto kernel = bwd_dkv_bf16_kernel<D, CAUSAL>;
+    if ((err = set_smem(kernel, dkv_bf16_smem<D>())) != 0) return err;
+    kernel<<<grid, kMmaThreads, dkv_bf16_smem<D>(), a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+        a.heads, a.kv_heads, a.seq_q, a.seq_k, a.scale);
+  } else {
+    return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
+// which: 0 = B3 (dQ), 1 = B4 (dK/dV).
+template <int D, bool CAUSAL>
+int launch_one(int which, int dtype, const Args& a) {
+  return which == 0 ? launch_dq<D, CAUSAL>(dtype, a)
+                    : launch_dkv<D, CAUSAL>(dtype, a);
+}
+
+int dispatch(int which, int head_dim, int dtype, int causal, const Args& a) {
+  if (head_dim == 64)
+    return causal ? launch_one<64, true>(which, dtype, a)
+                  : launch_one<64, false>(which, dtype, a);
+  if (head_dim == 128)
+    return causal ? launch_one<128, true>(which, dtype, a)
+                  : launch_one<128, false>(which, dtype, a);
+  return -1;
+}
+
+}  // namespace
+
+// C entry points for ctypes. dtype: 0 = float32, 1 = bfloat16. Inputs are
+// contiguous [batch, heads, seq_q, d] (q, dout, and dq) and [batch,
+// kv_heads, seq_k, d] (k, v, dk, dv); lse and delta are [batch, heads,
+// seq_q] fp32. Outputs are in the input dtype. Each returns 0, the CUDA
+// error of the launch, or -1 for a dtype / head dim it does not take.
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* dq, int batch, int heads,
+                            int kv_heads, int seq_q, int seq_k, int head_dim,
+                            int dtype, int causal, float scale, void* stream) {
+  const Args a{q,     k,        v,     dout,  lse,   delta,
+               dq,    nullptr,  nullptr, batch, heads, kv_heads,
+               seq_q, seq_k,    scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(0, head_dim, dtype, causal, a);
+}
+
+extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* delta, void* dk, void* dv, int batch,
+                             int heads, int kv_heads, int seq_q, int seq_k,
+                             int head_dim, int dtype, int causal, float scale,
+                             void* stream) {
+  const Args a{q,     k,     v,     dout,  lse,   delta,
+               nullptr, dk,  dv,    batch, heads, kv_heads,
+               seq_q, seq_k, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(1, head_dim, dtype, causal, a);
+}

@@ -1,10 +1,13 @@
-"""Carry the reference's flax parameter tree into the port's DecoderLM.
+"""Carry parameters between the reference's flax tree and the port's
+DecoderLM, both ways.
 
-``params_from_jax(tree, config)`` takes the tree that
+``params_from_jax(tree, config, param_dtype=None)`` takes the tree that
 ``k8s_device_plugin_tpu.models.transformer.init_params`` returns (or a
 restored checkpoint's), with numpy arrays as leaves, and returns a
 ``state_dict`` for ``k8s_device_plugin_tpu_torch.models.transformer.
-DecoderLM``. The mapping is reshapes only:
+DecoderLM``; ``params_to_jax(state_dict, config)`` is the inverse (the
+tests compare gradients in the reference's layout with it). The mapping
+is reshapes only:
 
 - DenseGeneral q/k/v kernels ``[E, H, D]`` -> ``[E, H*D]``, biases
   ``[H, D]`` -> ``[H*D]``; the o kernel ``[H, D, E]`` -> ``[H*D, E]``.
@@ -13,8 +16,10 @@ DecoderLM``. The mapping is reshapes only:
 - Norm ``scale`` / ``bias`` stay float32; ``lm_head.kernel`` is absent
   when ``tie_embeddings`` is set.
 
-Projection and embedding weights are cast to ``config.dtype`` (flax
-casts them on every call, to the same values).
+Projection and embedding weights are cast to ``config.dtype`` for the
+serving layout (flax casts them on every call, to the same values) and
+kept in ``param_dtype`` (float32) for the training layout
+(``DecoderLM(config, param_dtype=torch.float32)``).
 """
 
 from __future__ import annotations
@@ -29,9 +34,10 @@ def _t(a, dtype) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, dtype=np.float32).copy()).to(dtype)
 
 
-def params_from_jax(tree: dict, config: LMConfig) -> dict:
-    """flax param tree (numpy leaves) -> DecoderLM state_dict."""
-    dt = config.dtype
+def params_from_jax(tree: dict, config: LMConfig, param_dtype=None) -> dict:
+    """flax param tree (numpy leaves) -> DecoderLM state_dict, weights in
+    ``param_dtype`` (None: ``config.dtype``, the serving layout)."""
+    dt = param_dtype or config.dtype
     sd: dict[str, torch.Tensor] = {}
 
     def dense(prefix, node, flatten_in=False):
@@ -58,9 +64,7 @@ def params_from_jax(tree: dict, config: LMConfig) -> dict:
         for name in ("wq", "wk", "wv"):
             dense(f"{p}.attn.{name}", layer["attn"][name])
         dense(f"{p}.attn.wo", layer["attn"]["wo"], flatten_in=True)
-        names = ("wi", "wg", "down_proj") if config.mlp_act == "swiglu" \
-            else ("wi", "down_proj")
-        for name in names:
+        for name in _dense_names(config):
             dense(f"{p}.mlp.{name}", layer["mlp"][name])
         norm(f"{p}.ln1", layer["ln1"])
         norm(f"{p}.ln2", layer["ln2"])
@@ -68,3 +72,56 @@ def params_from_jax(tree: dict, config: LMConfig) -> dict:
     if not config.tie_embeddings:
         dense("lm_head", tree["lm_head"])
     return sd
+
+
+def _dense_names(config: LMConfig) -> tuple[str, ...]:
+    return ("wi", "wg", "down_proj") if config.mlp_act == "swiglu" \
+        else ("wi", "down_proj")
+
+
+def params_to_jax(state_dict: dict, config: LMConfig) -> dict:
+    """DecoderLM state_dict (either layout, or any tensors of the same
+    names and shapes, such as gradients) -> flax param tree with float32
+    numpy leaves, the inverse of ``params_from_jax``."""
+    hd = config.head_dim
+
+    def arr(name):
+        return state_dict[name].detach().float().cpu().numpy()
+
+    def dense(prefix, heads=None, out_heads=False):
+        node = {}
+        k = arr(f"{prefix}.kernel")
+        if out_heads:                        # wo: [H*D, E] -> [H, D, E]
+            k = k.reshape(-1, hd, k.shape[-1])
+        elif heads is not None:              # q/k/v: [E, H*D] -> [E, H, D]
+            k = k.reshape(k.shape[0], heads, hd)
+        node["kernel"] = k
+        if f"{prefix}.bias" in state_dict:
+            b = arr(f"{prefix}.bias")
+            node["bias"] = b.reshape(heads, hd) if heads is not None else b
+        return node
+
+    def norm(prefix):
+        node = {"scale": arr(f"{prefix}.scale")}
+        if f"{prefix}.bias" in state_dict:
+            node["bias"] = arr(f"{prefix}.bias")
+        return node
+
+    tree = {"embed": {"embedding": arr("embed")}}
+    if config.position == "learned":
+        tree["pos_embed"] = {"embedding": arr("pos_embed")}
+    for i in range(config.num_layers):
+        p = f"layers.{i}"
+        attn = {
+            "wq": dense(f"{p}.attn.wq", config.num_heads),
+            "wk": dense(f"{p}.attn.wk", config.kv_heads),
+            "wv": dense(f"{p}.attn.wv", config.kv_heads),
+            "wo": dense(f"{p}.attn.wo", out_heads=True),
+        }
+        mlp = {name: dense(f"{p}.mlp.{name}") for name in _dense_names(config)}
+        tree[f"layer{i}"] = {"attn": attn, "mlp": mlp,
+                             "ln1": norm(f"{p}.ln1"), "ln2": norm(f"{p}.ln2")}
+    tree["ln_f"] = norm("ln_f")
+    if not config.tie_embeddings:
+        tree["lm_head"] = dense("lm_head")
+    return tree

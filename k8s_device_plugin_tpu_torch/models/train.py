@@ -1,0 +1,200 @@
+"""LM training with checkpoint/resume on one device.
+
+The counterpart of ``k8s_device_plugin_tpu/models/train.py``: the same
+flags plus ``--device``, the same loop, log lines and preemption
+contract, over ``transformer.make_train_step`` on one device.
+
+- ``--mesh-axes`` takes axes of size 1 on one device (``dp``, ``tp``);
+  ``sp`` and ``ep`` (sequence parallelism, expert sharding) and
+  ``--experts`` raise, pointing at ROADMAP A8. ``--sp-impl`` is accepted
+  for the reference's command lines and does nothing without ``sp``.
+- Checkpoints are the port's own, not orbax's: under ``--checkpoint-dir``
+  one directory per step holding ``state.pt`` (``{"params", "opt",
+  "step"}`` via ``torch.save``), written under a temporary name and
+  renamed, the two newest kept; a rerun resumes at latest + 1 with the
+  optimizer state restored onto the device.
+- SIGTERM (armed only with a checkpoint dir) finishes the current step,
+  checkpoints it and exits 0, as the reference does.
+- Per-step tokens come from a ``torch.Generator`` seeded from
+  ``(1, step)``, so a resumed run continues the data stream where it
+  stopped, as ``jax.random.fold_in`` does in the reference. The draws
+  differ from ``jax.random``'s.
+
+Run: ``python -m k8s_device_plugin_tpu_torch.models.train --steps 100
+--checkpoint-dir /ckpt`` (``--tiny --device cpu`` for a CPU smoke run).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import shutil
+import signal
+import sys
+import threading
+import time
+
+import torch
+
+log = logging.getLogger("tpu-train")
+
+_STATE = "state.pt"
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="tpu-train")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=50)
+    p.add_argument("--tiny", action="store_true")
+    p.add_argument("--experts", type=int, default=0,
+                   help="switch-MoE MLPs (not ported yet: raises for > 0)")
+    p.add_argument("--mesh-axes", default="dp,tp",
+                   help="comma list from dp,sp,tp,ep; one device takes "
+                   "dp and tp of size 1 (sp, ep: not ported yet)")
+    p.add_argument("--sp-impl", default="ring", choices=("ring", "ulysses"),
+                   help="sequence-parallel attention (only with sp)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the card; 'cpu' to ask "
+                   "for the CPU)")
+    return p
+
+
+def mesh_shape(mesh_axes: str) -> dict:
+    """The one-device mesh of ``--mesh-axes``: every axis of size 1.
+    ``sp`` and ``ep`` need several devices and raise."""
+    axes = tuple(a.strip() for a in mesh_axes.split(",") if a.strip())
+    for a in axes:
+        if a not in ("dp", "sp", "tp", "ep"):
+            raise ValueError(f"unknown mesh axis {a!r} (dp, sp, tp, ep)")
+        if a in ("sp", "ep"):
+            raise NotImplementedError(
+                f"mesh axis {a!r} is not ported to the PyTorch package yet "
+                "(ROADMAP.md, queue A, item A8: parallelism)")
+    return {a: 1 for a in axes}
+
+
+class Checkpoints:
+    """The port's checkpoint directory: ``<root>/<step>/state.pt``."""
+
+    def __init__(self, root: str, max_to_keep: int = 2):
+        self.root = root
+        self.max_to_keep = max_to_keep
+        os.makedirs(root, exist_ok=True)
+
+    def steps(self) -> list[int]:
+        out = []
+        for name in os.listdir(self.root):
+            if name.isdigit() and os.path.exists(
+                    os.path.join(self.root, name, _STATE)):
+                out.append(int(name))
+        return sorted(out)
+
+    def latest_step(self):
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: dict) -> None:
+        """Write under a temporary name, then rename into place, so a
+        crash mid-write never leaves a step that looks complete."""
+        final = os.path.join(self.root, str(step))
+        tmp = os.path.join(self.root, f".{step}.tmp-{os.getpid()}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(state, os.path.join(tmp, _STATE))
+        shutil.rmtree(final, ignore_errors=True)
+        os.rename(tmp, final)
+        for old in self.steps()[:-self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.root, str(old)),
+                          ignore_errors=True)
+
+    def restore(self, step: int, device) -> dict:
+        return torch.load(os.path.join(self.root, str(step), _STATE),
+                          map_location=device, weights_only=True)
+
+
+def step_tokens(step: int, batch: int, seq: int, vocab: int) -> torch.Tensor:
+    """The batch of ``step``: a generator seeded from (1, step)."""
+    gen = torch.Generator().manual_seed((1 << 32) + step)
+    return torch.randint(0, vocab, (batch, seq), generator=gen)
+
+
+def main(argv=None) -> int:
+    args = build_arg_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname).1s %(name)s %(message)s")
+
+    from k8s_device_plugin_tpu_torch.models import transformer
+    from k8s_device_plugin_tpu_torch.utils.device import resolve_device
+
+    if args.experts:
+        raise NotImplementedError(
+            "--experts (MoE) is not ported to the PyTorch package yet "
+            "(ROADMAP.md, queue A, item A8)")
+    shape = mesh_shape(args.mesh_axes)
+    device = resolve_device(args.device)
+    config = transformer.LMConfig.tiny() if args.tiny \
+        else transformer.LMConfig()
+    log.info("training on mesh %s (%s)", shape, device)
+
+    step_fn, init_fn = transformer.make_train_step(config, device)
+    model, opt = init_fn(0)
+
+    start_step = 0
+    ckptr = Checkpoints(args.checkpoint_dir) if args.checkpoint_dir else None
+    if ckptr:
+        latest = ckptr.latest_step()
+        if latest is not None:
+            state = ckptr.restore(latest, device)
+            model.load_state_dict(state["params"])
+            opt.load_state_dict(state["opt"])
+            start_step = latest + 1
+            log.info("resumed from checkpoint step %d", latest)
+
+    # Preemption safety: finish the current step, checkpoint, and exit
+    # cleanly so the restarted pod resumes at the exact step. Armed only
+    # with a checkpoint dir: without one there is nothing to save.
+    preempted = threading.Event()
+    if ckptr:
+        def _on_term(signum, frame):
+            log.warning(
+                "SIGTERM received: checkpointing and exiting for resume"
+            )
+            preempted.set()
+
+        signal.signal(signal.SIGTERM, _on_term)
+
+    def save(step):
+        ckptr.save(step, {"params": model.state_dict(),
+                          "opt": opt.state_dict(), "step": step})
+        log.info("checkpointed step %d", step)
+
+    t0 = time.perf_counter()
+    loss = None
+    for step in range(start_step, args.steps):
+        tokens = step_tokens(step, args.batch_size, config.max_seq_len,
+                             config.vocab_size).to(device)
+        loss = step_fn(model, opt, tokens)
+        if step % 10 == 0:
+            log.info("step %d loss %.4f", step, float(loss))
+        if preempted.is_set():
+            save(step)
+            log.info("preempted at step %d; exiting for restart", step)
+            break
+        if ckptr and args.checkpoint_every and \
+                (step + 1) % args.checkpoint_every == 0:
+            save(step)
+    if loss is not None:
+        wall = time.perf_counter() - t0
+        steps_run = args.steps - start_step
+        log.info(
+            "done: %d steps in %.1fs (%.1f steps/s), final loss %.4f",
+            steps_run, wall, steps_run / max(wall, 1e-9), float(loss),
+        )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,18 +1,26 @@
 """Decoder-only transformer LM (the llm-serve workload) in PyTorch.
 
-The counterpart of ``k8s_device_plugin_tpu/models/transformer.py`` for
-inference on one device: the same config and knobs (rms / layernorm,
-learned / rope positions, GQA, gelu / swiglu, biases, tied embeddings),
-the full-sequence forward, and the rows-layout kv-cache forward (prefill
-and incremental steps). Paged attention, MoE, sequence parallelism and
-the training functions are not ported yet (ROADMAP.md).
+The counterpart of ``k8s_device_plugin_tpu/models/transformer.py`` on
+one device: the same config and knobs (rms / layernorm, learned / rope
+positions, GQA, gelu / swiglu, biases, tied embeddings), the
+full-sequence forward, the rows-layout kv-cache forward (prefill and
+incremental steps), and training: ``loss_fn``, ``chunked_lm_loss``,
+``make_train_step``, ``train_flops_per_step``, ``benchmark_train`` and
+the ``lm-train-benchmark`` CLI (``main``). Paged attention, MoE and
+sequence parallelism are not ported yet (ROADMAP.md).
 
 Numerics follow flax's, since the tests hold this module to the
-reference's logits:
+reference's logits and gradients:
 
-- Projection and embedding weights are stored in ``config.dtype``. flax
-  keeps them in float32 and casts them to ``config.dtype`` on every call,
-  which rounds identically; storing them cast saves that traffic.
+- Two parameter layouts (``DecoderLM(cfg, param_dtype=...)``). Serving
+  (``param_dtype=None``) stores projection and embedding weights in
+  ``config.dtype`` without gradients: flax keeps them in float32 and
+  casts them to ``config.dtype`` on every call, which rounds
+  identically, and storing them cast saves that traffic. Training
+  (``param_dtype=torch.float32``) is flax's own layout: float32
+  parameters with gradients, cast to ``config.dtype`` inside each
+  ``Dense``, the embedding lookup, ``pos_embed`` and the tied head, so
+  the optimizer updates float32 weights as ``optax.adamw`` does.
 - ``RMSNorm`` returns ``(x * rsqrt(var + eps)).astype(dtype) * scale``
   with a float32 scale, so its output is float32; the next projection
   casts back. ``LayerNorm`` takes its statistics in float32
@@ -28,13 +36,17 @@ with reshapes only.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import time
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from k8s_device_plugin_tpu_torch.ops.attention import flash_attention
+from k8s_device_plugin_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -169,33 +181,39 @@ def set_cache_index(cache: KVCache, value) -> KVCache:
 # layers
 # ---------------------------------------------------------------------------
 
+def _param(shape, dtype, param_dtype, fill=torch.empty) -> nn.Parameter:
+    """A parameter in the serving layout (``param_dtype`` None: stored in
+    the compute ``dtype``, no gradient) or the training one (stored in
+    ``param_dtype``, with gradient)."""
+    return nn.Parameter(fill(shape, dtype=param_dtype or dtype),
+                        requires_grad=param_dtype is not None)
+
+
 class Dense(nn.Module):
-    """flax ``nn.Dense`` / ``DenseGeneral`` at inference: ``x @ kernel
-    (+ bias)`` computed in ``dtype``, kernel stored ``[in, out]``."""
+    """flax ``nn.Dense`` / ``DenseGeneral``: ``x @ kernel (+ bias)``
+    computed in ``dtype``, kernel stored ``[in, out]`` (cast to ``dtype``
+    on each call when stored wider; a no-op in the serving layout)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, param_dtype=None):
         super().__init__()
-        self.kernel = nn.Parameter(
-            torch.empty(in_features, out_features, dtype=dtype),
-            requires_grad=False,
-        )
-        self.bias = (
-            nn.Parameter(torch.zeros(out_features, dtype=dtype),
-                         requires_grad=False) if bias else None
-        )
+        self.dtype = dtype
+        self.kernel = _param((in_features, out_features), dtype, param_dtype)
+        self.bias = (_param((out_features,), dtype, param_dtype, torch.zeros)
+                     if bias else None)
 
     def forward(self, x):
-        y = x.to(self.kernel.dtype) @ self.kernel
-        return y if self.bias is None else y + self.bias
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, dtype: torch.dtype, eps: float = 1e-6):
+    def __init__(self, dim: int, dtype: torch.dtype, eps: float = 1e-6,
+                 trainable: bool = False):
         super().__init__()
         self.dtype = dtype
         self.eps = eps
-        self.scale = nn.Parameter(torch.ones(dim), requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(dim), requires_grad=trainable)
 
     def forward(self, x):
         var = x.float().square().mean(-1, keepdim=True)
@@ -208,12 +226,13 @@ class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: fp32 statistics with the fast variance,
     output in ``dtype``."""
 
-    def __init__(self, dim: int, dtype: torch.dtype, eps: float):
+    def __init__(self, dim: int, dtype: torch.dtype, eps: float,
+                 trainable: bool = False):
         super().__init__()
         self.dtype = dtype
         self.eps = eps
-        self.scale = nn.Parameter(torch.ones(dim), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(dim), requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(dim), requires_grad=trainable)
+        self.bias = nn.Parameter(torch.zeros(dim), requires_grad=trainable)
 
     def forward(self, x):
         xf = x.float()
@@ -223,11 +242,13 @@ class LayerNorm(nn.Module):
         return ((xf - mean) * mul + self.bias).to(self.dtype)
 
 
-def make_norm(cfg: LMConfig) -> nn.Module:
+def make_norm(cfg: LMConfig, trainable: bool = False) -> nn.Module:
+    """Norm scales (and LayerNorm's bias) are float32 in both layouts;
+    ``trainable`` gives them gradients."""
     if cfg.norm == "layernorm":
-        return LayerNorm(cfg.embed_dim, cfg.dtype, cfg.norm_eps)
+        return LayerNorm(cfg.embed_dim, cfg.dtype, cfg.norm_eps, trainable)
     if cfg.norm == "rms":
-        return RMSNorm(cfg.embed_dim, cfg.dtype, eps=cfg.norm_eps)
+        return RMSNorm(cfg.embed_dim, cfg.dtype, cfg.norm_eps, trainable)
     raise ValueError(f"unknown norm {cfg.norm!r} (rms | layernorm)")
 
 
@@ -265,16 +286,17 @@ def _bhsd(x):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: LMConfig):
+    def __init__(self, cfg: LMConfig, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         qkv_bias = cfg.use_bias or cfg.qkv_bias
         hd = cfg.head_dim
-        self.wq = Dense(cfg.embed_dim, cfg.num_heads * hd, qkv_bias, cfg.dtype)
-        self.wk = Dense(cfg.embed_dim, cfg.kv_heads * hd, qkv_bias, cfg.dtype)
-        self.wv = Dense(cfg.embed_dim, cfg.kv_heads * hd, qkv_bias, cfg.dtype)
-        self.wo = Dense(cfg.num_heads * hd, cfg.embed_dim, cfg.use_bias,
-                        cfg.dtype)
+        dense = functools.partial(Dense, dtype=cfg.dtype,
+                                  param_dtype=param_dtype)
+        self.wq = dense(cfg.embed_dim, cfg.num_heads * hd, qkv_bias)
+        self.wk = dense(cfg.embed_dim, cfg.kv_heads * hd, qkv_bias)
+        self.wv = dense(cfg.embed_dim, cfg.kv_heads * hd, qkv_bias)
+        self.wo = dense(cfg.num_heads * hd, cfg.embed_dim, cfg.use_bias)
 
     def forward(self, x, cache: KVCache | None = None, layer: int = 0,
                 prefill: bool = False):
@@ -292,8 +314,9 @@ class Attention(nn.Module):
                     torch.arange(s, device=x.device), hd, cfg.rope_theta
                 )
                 q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-            # The kernel reads shared kv heads in place (GQA), so K/V go
-            # in unexpanded.
+            # The kernels read shared kv heads in place (GQA), so K/V go
+            # in unexpanded; under autograd FlashAttention's backward
+            # (B3, B4) returns their gradients unexpanded too.
             out = flash_attention(_bhsd(q), _bhsd(k), _bhsd(v),
                                   causal=True).transpose(1, 2)
         return self.wo(out.reshape(b, s, cfg.num_heads * hd))
@@ -364,15 +387,15 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: LMConfig):
+    def __init__(self, cfg: LMConfig, param_dtype=None):
         super().__init__()
         self.cfg = cfg
-        self.wi = Dense(cfg.embed_dim, cfg.mlp_dim, cfg.use_bias, cfg.dtype)
+        dense = functools.partial(Dense, bias=cfg.use_bias, dtype=cfg.dtype,
+                                  param_dtype=param_dtype)
+        self.wi = dense(cfg.embed_dim, cfg.mlp_dim)
         if cfg.mlp_act == "swiglu":
-            self.wg = Dense(cfg.embed_dim, cfg.mlp_dim, cfg.use_bias,
-                            cfg.dtype)
-        self.down_proj = Dense(cfg.mlp_dim, cfg.embed_dim, cfg.use_bias,
-                               cfg.dtype)
+            self.wg = dense(cfg.embed_dim, cfg.mlp_dim)
+        self.down_proj = dense(cfg.mlp_dim, cfg.embed_dim)
 
     def forward(self, x):
         h = self.wi(x)
@@ -385,12 +408,13 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: LMConfig):
+    def __init__(self, cfg: LMConfig, param_dtype=None):
         super().__init__()
-        self.ln1 = make_norm(cfg)
-        self.attn = Attention(cfg)
-        self.ln2 = make_norm(cfg)
-        self.mlp = MLP(cfg)
+        trainable = param_dtype is not None
+        self.ln1 = make_norm(cfg, trainable)
+        self.attn = Attention(cfg, param_dtype)
+        self.ln2 = make_norm(cfg, trainable)
+        self.mlp = MLP(cfg, param_dtype)
 
     def forward(self, x, cache=None, layer: int = 0, prefill: bool = False):
         # The residual stream keeps its dtype: x + (cfg.dtype output),
@@ -400,41 +424,46 @@ class Block(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    def __init__(self, cfg: LMConfig):
+    """The decoder LM. ``param_dtype=None`` is the serving layout
+    (weights in ``cfg.dtype``, no gradients); ``torch.float32`` is
+    flax's training layout (module docstring)."""
+
+    def __init__(self, cfg: LMConfig, param_dtype=None):
         super().__init__()
         if cfg.num_experts:
             raise NotImplementedError(
                 "MoE layers are not ported to the PyTorch package yet "
-                "(ROADMAP.md, queue A)"
+                "(ROADMAP.md, queue A, item A8)"
             )
         self.cfg = cfg
-        self.embed = nn.Parameter(
-            torch.empty(cfg.vocab_size, cfg.embed_dim, dtype=cfg.dtype),
-            requires_grad=False,
-        )
+        self.embed = _param((cfg.vocab_size, cfg.embed_dim), cfg.dtype,
+                            param_dtype)
         if cfg.position == "learned":
-            self.pos_embed = nn.Parameter(
-                torch.empty(cfg.max_seq_len, cfg.embed_dim, dtype=cfg.dtype),
-                requires_grad=False,
-            )
-        self.layers = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
-        self.ln_f = make_norm(cfg)
+            self.pos_embed = _param((cfg.max_seq_len, cfg.embed_dim),
+                                    cfg.dtype, param_dtype)
+        self.layers = nn.ModuleList(Block(cfg, param_dtype)
+                                    for _ in range(cfg.num_layers))
+        self.ln_f = make_norm(cfg, param_dtype is not None)
         if not cfg.tie_embeddings:
             self.lm_head = Dense(cfg.embed_dim, cfg.vocab_size, False,
-                                 cfg.dtype)
+                                 cfg.dtype, param_dtype)
 
     def forward(self, tokens, cache: KVCache | None = None,
-                prefill: bool = False):
+                prefill: bool = False, return_features: bool = False):
         """Logits (float32 ``[b, s, vocab]``) for ``tokens [b, s]``.
 
         Without a cache: the full-sequence causal forward. With one: the
         decode forward at ``cache.idx`` (``prefill`` for the first block
         of a fresh cache), which writes every layer's K/V and then
-        advances the index by ``s`` in place."""
+        advances the index by ``s`` in place. ``return_features`` returns
+        the final norm's output instead of logits (the chunked loss
+        applies the head itself)."""
         cfg = self.cfg
         s = tokens.shape[1]
-        # Out-of-range ids clamp, as the reference's gather does.
-        x = self.embed[tokens.clamp(0, cfg.vocab_size - 1)]
+        # Out-of-range ids clamp, as the reference's gather does. flax
+        # casts the table to cfg.dtype before the gather, so repeated
+        # tokens' gradients sum in cfg.dtype too.
+        x = self.embed.to(cfg.dtype)[tokens.clamp(0, cfg.vocab_size - 1)]
         if cfg.position == "learned":
             ar = torch.arange(s, device=tokens.device)
             if cache is None:
@@ -444,15 +473,17 @@ class DecoderLM(nn.Module):
                 base = idx if idx.dim() == 0 else idx[:, None]
                 # clamped to the table, like the cache writes
                 positions = torch.clamp(base + ar, max=cfg.max_seq_len - 1)
-            pos = self.pos_embed[positions]
+            pos = self.pos_embed.to(cfg.dtype)[positions]
             x = x + (pos if pos.dim() == 3 else pos[None])
         for i, layer in enumerate(self.layers):
             x = layer(x, cache, i, prefill)
         if cache is not None:
             cache.idx = cache.idx + s
         x = self.ln_f(x)
+        if return_features:
+            return x
         if cfg.tie_embeddings:
-            logits = x.to(cfg.dtype) @ self.embed.T
+            logits = x.to(cfg.dtype) @ self.embed.to(cfg.dtype).T
         else:
             logits = self.lm_head(x)
         return logits.float()
@@ -495,3 +526,225 @@ def init_params(model: DecoderLM, seed: int = 0) -> DecoderLM:
             if p is not None:
                 p.copy_(torch.randn(p.shape, generator=gen, device=dev) * std)
     return model
+
+
+# ---------------------------------------------------------------------------
+# training (the counterpart of the reference's transformer.py:677-954)
+# ---------------------------------------------------------------------------
+
+def _chunk_loss(f, kernel, t, m, dtype):
+    logits = (f.to(dtype) @ kernel.to(dtype)).float()
+    losses = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                             t.reshape(-1), reduction="none")
+    return (losses * m.reshape(-1)).sum()
+
+
+def chunked_lm_loss(feats, head_kernel, targets, mask, num_chunks: int,
+                    compute_dtype=None):
+    """Masked-mean next-token cross-entropy without [B, S, vocab] logits.
+
+    The head matmul + cross-entropy run per sequence chunk under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so
+    the backward recomputes each chunk's logits from the O(S*E) features.
+    feats [B, S, E]; mask [B, S] float (0 drops a position).
+
+    The head kernel is cast to ``compute_dtype``, and the product then
+    follows jnp's promotion: RMSNorm's float32 features times a bf16
+    kernel compute in float32; LayerNorm's bf16 features stay bf16."""
+    _, s, _ = feats.shape
+    if s % num_chunks:
+        raise ValueError(f"seq {s} not divisible into {num_chunks} chunks")
+    if compute_dtype is not None:
+        head_kernel = head_kernel.to(compute_dtype)
+    dtype = torch.promote_types(feats.dtype, head_kernel.dtype)
+    c = s // num_chunks
+    total = feats.new_zeros((), dtype=torch.float32)
+    for i in range(num_chunks):
+        part = slice(i * c, (i + 1) * c)
+        total = total + checkpoint(
+            _chunk_loss, feats[:, part], head_kernel, targets[:, part],
+            mask[:, part], dtype, use_reentrant=False)
+    return total / mask.sum().clamp_min(1.0)
+
+
+def loss_fn(model: DecoderLM, tokens, loss_chunks: int = 0):
+    """Next-token LM loss: targets ``roll(tokens, -1)``, mean
+    cross-entropy of the float32 logits ``[:, :-1]``. ``loss_chunks > 0``
+    switches to ``chunked_lm_loss`` (same numbers, O(S/chunks * vocab)
+    peak logits memory)."""
+    cfg = model.cfg
+    targets = torch.roll(tokens, -1, dims=1)
+    if loss_chunks:
+        feats = model(tokens, return_features=True)
+        s = tokens.shape[1]
+        mask = (torch.arange(s, device=tokens.device) < s - 1).float()
+        kernel = model.embed.T if cfg.tie_embeddings \
+            else model.lm_head.kernel
+        return chunked_lm_loss(feats, kernel, targets,
+                               mask.expand(tokens.shape), loss_chunks,
+                               compute_dtype=cfg.dtype)
+    logits = model(tokens)
+    return F.cross_entropy(logits[:, :-1].reshape(-1, cfg.vocab_size),
+                           targets[:, :-1].reshape(-1))
+
+
+def default_optimizer(params) -> torch.optim.Optimizer:
+    """``optax.adamw(3e-4)`` with its defaults (b1 0.9, b2 0.999, eps
+    1e-8, weight decay 1e-4 on every parameter). torch's own AdamW
+    default decay, 0.01, would differ."""
+    return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def make_train_step(config: LMConfig, device=None, optimizer=None,
+                    loss_chunks: int = 0):
+    """Single-device training step: the counterpart of the reference's
+    ``make_sharded_train_step`` on one device (the sharded dp x tp x sp
+    step waits for ROADMAP A8).
+
+    Returns ``(train_step, init_fn)``. ``init_fn(seed=0)`` builds the
+    model in flax's training layout (float32 parameters) with seeded
+    random weights on ``device`` and its optimizer (``optimizer(params)``,
+    default ``default_optimizer``); ``train_step(model, opt, tokens)``
+    runs loss, backward and one optimizer update in place and returns the
+    detached loss. ``device`` is the card unless the caller asks for the
+    CPU."""
+    device = resolve_device(device)
+    make_opt = optimizer or default_optimizer
+
+    def init_fn(seed: int = 0):
+        model = DecoderLM(config, param_dtype=torch.float32).to(device)
+        init_params(model, seed)
+        return model, make_opt(model.parameters())
+
+    def train_step(model, opt, tokens):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, tokens, loss_chunks)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return train_step, init_fn
+
+
+def train_flops_per_step(config: LMConfig, batch: int) -> float:
+    """Analytic training FLOPs per step (scaling-book accounting), the
+    reference's formula: 6*N*T for the parameter matmuls over the
+    non-embedding parameter count N (lm_head counted) and T = batch*seq
+    tokens, plus 12*L*b*s^2*e for the attention score/value products."""
+    e, L, s = config.embed_dim, config.num_layers, config.max_seq_len
+    attn_params = 2 * e * e + 2 * e * e * config.kv_heads // config.num_heads
+    mats = 3 if config.mlp_act == "swiglu" else 2
+    mlp_params = mats * e * config.mlp_dim * max(1, config.num_experts)
+    n_params = L * (attn_params + mlp_params) + config.vocab_size * e
+    tokens = batch * s
+    return 6.0 * n_params * tokens + 12.0 * L * batch * s * s * e
+
+
+# bf16 dense tensor-core peak of one H100 SXM (NVIDIA data sheet); MFU is
+# reported against it.
+H100_BF16_PEAK_FLOPS = 989e12
+
+
+def flagship_config() -> LMConfig:
+    """The reference benchmark's flagship config (head dim 128)."""
+    return LMConfig(vocab_size=32000, num_layers=8, num_heads=8,
+                    embed_dim=1024, mlp_dim=4096, max_seq_len=2048)
+
+
+def smoke_config() -> LMConfig:
+    """The reference CLI's ``--smoke`` config (still head dim 128)."""
+    return LMConfig(vocab_size=1000, num_layers=2, num_heads=2,
+                    embed_dim=256, mlp_dim=512, max_seq_len=256)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def benchmark_train(config: LMConfig | None = None, batch: int = 8,
+                    steps: int = 20, warmup: int = 3,
+                    peak_flops: float = H100_BF16_PEAK_FLOPS,
+                    loss_chunks: int = 0, device=None) -> dict:
+    """Single-device training throughput + MFU on the flagship config.
+
+    Random tokens from a seeded generator, ``warmup`` untimed steps, then
+    ``steps`` timed ones between two ``torch.cuda.synchronize()`` calls.
+    Returns the reference's keys (``backend`` is the torch device type)
+    plus ``device_name`` and ``first_loss`` (the first step's loss)."""
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    device = resolve_device(device)
+    config = config or flagship_config()
+    train_step, init_fn = make_train_step(config, device,
+                                          loss_chunks=loss_chunks)
+    model, opt = init_fn(0)
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, config.vocab_size, (batch, config.max_seq_len),
+                           generator=gen).to(device)
+    losses = [train_step(model, opt, tokens) for _ in range(warmup)]
+    _sync(device)
+    start = time.perf_counter()
+    for _ in range(steps):
+        loss = train_step(model, opt, tokens)
+        losses.append(loss)
+    _sync(device)
+    elapsed = time.perf_counter() - start
+    flops = train_flops_per_step(config, batch)
+    tflops_per_s = flops * steps / elapsed / 1e12
+    return {
+        "backend": device.type,
+        "device_name": (torch.cuda.get_device_name(device)
+                        if device.type == "cuda" else "cpu"),
+        "batch": batch,
+        "seq": config.max_seq_len,
+        "steps": steps,
+        "seconds": elapsed,
+        "tokens_per_second": batch * config.max_seq_len * steps / elapsed,
+        "tflops_per_second": tflops_per_s,
+        "mfu": tflops_per_s * 1e12 / peak_flops,
+        "first_loss": float(losses[0]),
+        "final_loss": float(loss),
+    }
+
+
+def main(argv=None) -> int:
+    import argparse
+    import json
+
+    p = argparse.ArgumentParser(prog="lm-train-benchmark")
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument(
+        "--smoke", action="store_true",
+        help="small config (still head_dim 128) for smoke runs",
+    )
+    p.add_argument(
+        "--loss-chunks", type=int, default=0,
+        help="chunked cross-entropy over N sequence chunks (0 = fused)",
+    )
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the card; 'cpu' to ask "
+                   "for the CPU)")
+    args = p.parse_args(argv)
+    result = benchmark_train(
+        config=smoke_config() if args.smoke else None, batch=args.batch,
+        steps=args.steps, loss_chunks=args.loss_chunks, device=args.device)
+    if args.json:
+        print(json.dumps(result))
+    else:
+        print(
+            f"LM train: backend={result['backend']} "
+            f"device={result['device_name']} batch={result['batch']} "
+            f"seq={result['seq']} steps={result['steps']} "
+            f"wall={result['seconds']:.2f}s "
+            f"{result['tflops_per_second']:.1f} TFLOP/s "
+            f"(MFU {result['mfu'] * 100:.1f}%) loss={result['final_loss']:.3f}"
+        )
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,25 +1,36 @@
-"""Flash-style attention forward: a hand-written CUDA kernel for Hopper
-and its plain PyTorch version.
+"""Flash-style attention, forward and backward: hand-written CUDA kernels
+for Hopper and their plain PyTorch versions.
 
 The counterpart of ``k8s_device_plugin_tpu/ops/attention.py``. The
 layout at the public functions is the reference's: q ``[b, h, s, d]``,
 k/v ``[b, kv_heads, s, d]``, outputs ``out [b, h, s, d]`` in q's dtype
 and ``lse [b, h, s]`` in float32.
 
-Dispatch is by the tensors' device, nothing else: a CPU tensor takes
-the plain version (``reference_attention`` / ``..._with_lse``, which
-mirror the reference's jnp code operation for operation); a CUDA tensor
-launches the kernel in ``csrc/flash_fwd.cu`` or raises. There is no
-fallback from the card to the plain version or to a library call.
+``FlashAttention`` is the autograd Function (the reference's custom_vjps
+``_flash_diff`` / ``_flash_lse_diff``): its forward returns ``(out,
+lse)`` and saves only ``q, k, v, out, lse``, never the probabilities;
+its backward recomputes them blockwise. ``flash_attention`` returns its
+``out``, ``flash_attention_with_lse`` both, and both are differentiable;
+a missing lse cotangent counts as zero.
+
+Dispatch is by the tensors' device, nothing else, forward and backward
+alike: a CPU tensor takes the plain version (``reference_attention*``
+mirror the reference's jnp code, ``reference_attention_backward`` its
+backward kernels); a CUDA tensor launches the kernels or raises —
+``csrc/flash_fwd.cu`` (B1) forward, ``csrc/flash_bwd.cu`` (B3 dQ, B4
+dK/dV) backward. There is no fallback from the card to the plain version
+or to a library call.
 
 K/V may carry fewer heads than q (GQA): q head h attends kv head
 ``h // (heads // kv_heads)``, the ``repeat_kv`` order of
-models/transformer.py. The kernel reads the shared head in place; the
-plain version expands it first.
+models/transformer.py. The kernels read the shared head in place and B4
+sums its gradient over the group; the plain versions expand first.
 
-Only the forward is ported: the backward kernels (the reference's
-``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``) are training work still to
-port (ROADMAP.md).
+The kernels take head dims 64 and 128. On the card, any other head dim
+up to 128 is zero-padded to the next of them with the softmax scale of
+the true dim, and the results are sliced back: zero lanes add nothing,
+so this is exact (the reference's own rule, attention.py:575-594).
+Larger head dims raise.
 """
 
 from __future__ import annotations
@@ -49,6 +60,18 @@ FLASH_FWD = KernelStats(
     source="k8s_device_plugin_tpu_torch/csrc/flash_fwd.cu",
     replaces="k8s_device_plugin_tpu/ops/attention.py:90 (_attn_kernel, "
              "pallas_call at :192)",
+)
+FLASH_BWD_DQ = KernelStats(
+    "flash_bwd_dq",
+    source="k8s_device_plugin_tpu_torch/csrc/flash_bwd.cu",
+    replaces="k8s_device_plugin_tpu/ops/attention.py:221 (_bwd_dq_kernel, "
+             "pallas_call at :382)",
+)
+FLASH_BWD_DKV = KernelStats(
+    "flash_bwd_dkv",
+    source="k8s_device_plugin_tpu_torch/csrc/flash_bwd.cu",
+    replaces="k8s_device_plugin_tpu/ops/attention.py:275 (_bwd_dkv_kernel, "
+             "pallas_call at :413)",
 )
 
 
@@ -94,86 +117,274 @@ def reference_attention_with_lse(q, k, v, causal: bool = False):
     return out, lse
 
 
-def _check_kernel_inputs(q, k, v):
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def attention_delta(out, g, g_lse=None):
+    """delta = rowsum(dO * O) - g_lse in float32 ([b, h, s]), from O as
+    the forward returned it (in q's dtype, not its fp32 accumulator).
+    The reference computes it in XLA outside its kernels
+    (attention.py:354-360); the port in plain torch beside them."""
+    delta = (g.float() * out.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta
+
+
+def reference_attention_backward(q, k, v, out, lse, g, g_lse=None,
+                                 causal: bool = False):
+    """Plain backward; the numerical reference for kernels B3 and B4.
+
+    Operation for operation what ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``
+    compute, in float32: S recomputed with the scale folded into q,
+    P = exp(S - LSE), dP = dO V^T, dS = P (dP - delta), dQ = scale dS K,
+    dK = dS^T (scale Q), dV = P^T dO. K/V come in unexpanded; dK and dV
+    are summed over each group's n_rep q heads (what autodiff of
+    repeat_kv gives the reference). Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    b, heads, s_q, d = q.shape
+    kvh, s_k = k.shape[1], k.shape[2]
+    scale = d ** -0.5
+    qs = q.float() * scale
+    kf = expand_kv(k, heads).float()
+    vf = expand_kv(v, heads).float()
+    gf = g.float()
+    delta = attention_delta(out, g, g_lse)
+    scores = torch.einsum("bhqd,bhkd->bhqk", qs, kf)
+    if causal:
+        scores = scores.masked_fill(~_causal_mask(s_q, s_k, q.device),
+                                    _NEG_INF)
+    probs = torch.exp(scores - lse.float()[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
+    ds = probs * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qs)
+    dv = torch.einsum("bhqk,bhqd->bhkd", probs, gf)
+    n_rep = heads // kvh
+    dk = dk.view(b, kvh, n_rep, s_k, d).sum(2)
+    dv = dv.view(b, kvh, n_rep, s_k, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the kernels (CUDA tensors only)
+# ---------------------------------------------------------------------------
+
+def _check_kernel_inputs(name, q, k, v, *rows):
+    """Device, dtype, layout and shape checks shared by the three kernel
+    wrappers; ``rows`` are [b, h, s, d] tensors that must match q."""
+    for what, t in (("q", q), ("k", k), ("v", v)) + rows:
         if t.device.type != "cuda":
-            raise ValueError(f"flash_fwd: {name} is on {t.device}, not CUDA")
+            raise ValueError(f"{name}: {what} is on {t.device}, not CUDA")
         if not t.is_contiguous():
-            raise ValueError(f"flash_fwd: {name} is not contiguous")
+            raise ValueError(f"{name}: {what} is not contiguous")
         if t.dtype != q.dtype:
-            raise ValueError(f"flash_fwd: {name} is {t.dtype}, q {q.dtype}")
+            raise ValueError(f"{name}: {what} is {t.dtype}, q {q.dtype}")
         if t.dim() != 4:
-            raise ValueError(f"flash_fwd: {name} must be [b, h, s, d]")
+            raise ValueError(f"{name}: {what} must be [b, h, s, d]")
+        if t.device != q.device:
+            raise ValueError(f"{name}: q, k, v on different devices")
     if q.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"flash_fwd: dtype {q.dtype} not supported "
+        raise ValueError(f"{name}: dtype {q.dtype} not supported "
                          f"(float32, bfloat16)")
     b, h, _, d = q.shape
     if d not in _KERNEL_DIMS:
-        raise ValueError(f"flash_fwd: head dim {d} not supported "
+        raise ValueError(f"{name}: head dim {d} not supported "
                          f"({_KERNEL_DIMS})")
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"flash_fwd: k {tuple(k.shape)} / v "
+        raise ValueError(f"{name}: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if h % k.shape[1]:
-        raise ValueError(f"flash_fwd: {h} heads not divisible by "
+        raise ValueError(f"{name}: {h} heads not divisible by "
                          f"{k.shape[1]} kv heads")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_fwd: q, k, v on different devices")
+    for what, t in rows:
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: {what} {tuple(t.shape)} does not "
+                             f"match q {tuple(q.shape)}")
 
 
-def _flash_fn():
-    """The built kernel's C entry point, typed for ctypes once (ctypes
-    caches the function object on the library)."""
+def _kernel_fn(lib: str, symbol: str, n_ptr: int, n_int: int):
+    """A built kernel's C entry point, typed for ctypes once (ctypes
+    caches the function object on the library): ``n_ptr`` pointers,
+    ``n_int`` ints, then the scale and the stream."""
     from k8s_device_plugin_tpu_torch.ops import _build
 
-    fn = _build.load("flash_fwd").flash_fwd
+    fn = getattr(_build.load(lib), symbol)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
             ctypes.c_float, ctypes.c_void_p,
         ]
     return fn
 
 
-def flash_forward_cuda(q, k, v, causal: bool):
-    """Launch the CUDA kernel (kernel B1 of PERF.md); (out, lse).
+def _run(fn, name, q, *args):
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def flash_forward_cuda(q, k, v, causal: bool, scale: float | None = None):
+    """Launch kernel B1 (flash forward); (out, lse).
 
     bfloat16 runs on the tensor cores (mma.sync), float32 on FP32 FMA
-    (csrc/flash_fwd.cu says why)."""
-    _check_kernel_inputs(q, k, v)
-    fn = _flash_fn()
+    (csrc/flash_fwd.cu says why). ``scale`` defaults to d^-0.5."""
+    _check_kernel_inputs("flash_fwd", q, k, v)
     b, h, s, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), b, h, k.shape[1], s, k.shape[2], d,
-                _KERNEL_DTYPES[q.dtype], int(bool(causal)), d ** -0.5,
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {rc}")
+    fn = _kernel_fn("flash_fwd", "flash_fwd", 5, 8)
+    _run(fn, "flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         out.data_ptr(), lse.data_ptr(), b, h, k.shape[1], s, k.shape[2], d,
+         _KERNEL_DTYPES[q.dtype], int(bool(causal)),
+         d ** -0.5 if scale is None else scale)
     FLASH_FWD.launches += 1
     return out, lse
+
+
+def _bwd_args(q, k, causal, scale):
+    b, h, s, d = q.shape
+    return (b, h, k.shape[1], s, k.shape[2], d, _KERNEL_DTYPES[q.dtype],
+            int(bool(causal)), d ** -0.5 if scale is None else scale)
+
+
+def flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal: bool,
+                      scale: float | None = None):
+    """Launch kernel B3: dQ ([b, h, s, d], q's dtype) from the saved
+    forward tensors, the output cotangent ``g`` and fp32 ``lse`` /
+    ``delta`` ([b, h, s])."""
+    _check_kernel_inputs("flash_bwd_dq", q, k, v, ("g", g))
+    dq = torch.empty_like(q)
+    if dq.numel() == 0 or k.numel() == 0:
+        return dq.zero_()
+    fn = _kernel_fn("flash_bwd", "flash_bwd_dq", 7, 8)
+    _run(fn, "flash_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+         *_bwd_args(q, k, causal, scale))
+    FLASH_BWD_DQ.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal: bool,
+                       scale: float | None = None):
+    """Launch kernel B4: (dK, dV), unexpanded ([b, kv_heads, s, d]),
+    summed over each kv head's group of q heads inside the kernel."""
+    _check_kernel_inputs("flash_bwd_dkv", q, k, v, ("g", g))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0 or q.numel() == 0:
+        return dk.zero_(), dv.zero_()
+    fn = _kernel_fn("flash_bwd", "flash_bwd_dkv", 8, 8)
+    _run(fn, "flash_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+         dv.data_ptr(), *_bwd_args(q, k, causal, scale))
+    FLASH_BWD_DKV.launches += 1
+    return dk, dv
+
+
+def flash_backward_cuda(q, k, v, out, lse, g, g_lse=None,
+                        causal: bool = False, scale: float | None = None):
+    """Kernels B3 and B4 for one backward; (dq, dk, dv).
+
+    delta = rowsum(dO * O) - g_lse is plain torch (attention_delta), as
+    in the reference, from the ``out`` the forward returned."""
+    _check_kernel_inputs("flash_bwd", q, k, v, ("out", out), ("g", g))
+    lse = lse.float().contiguous()
+    delta = attention_delta(out, g, g_lse).contiguous()
+    dq = flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run a true head dim ``d`` at: the next of
+    64 / 128. Raises above 128."""
+    for dim in _KERNEL_DIMS:
+        if d <= dim:
+            return dim
+    raise ValueError(f"flash attention: head dim {d} not supported "
+                     f"(at most {_KERNEL_DIMS[-1]})")
+
+
+def _pad(x, dim):
+    pad = dim - x.shape[-1]
+    x = x.contiguous()
+    return x if pad == 0 else torch.nn.functional.pad(x, (0, pad))
+
+
+def _forward(q, k, v, causal):
+    """(out, lse) by device: the plain version on the CPU, B1 on CUDA
+    (head dim zero-padded to the kernel's, scale of the true dim)."""
+    if q.device.type == "cpu":
+        return reference_attention_with_lse(q, k, v, causal=causal)
+    d = q.shape[-1]
+    dim = kernel_head_dim(d)
+    out, lse = flash_forward_cuda(_pad(q, dim), _pad(k, dim), _pad(v, dim),
+                                  causal, scale=d ** -0.5)
+    return out[..., :d].contiguous() if dim != d else out, lse
+
+
+def _backward(q, k, v, out, lse, g, g_lse, causal):
+    """(dq, dk, dv) by device: the plain version on the CPU, B3 + B4 on
+    CUDA (padded as the forward is)."""
+    if q.device.type == "cpu":
+        return reference_attention_backward(q, k, v, out, lse, g, g_lse,
+                                            causal=causal)
+    d = q.shape[-1]
+    dim = kernel_head_dim(d)
+    grads = flash_backward_cuda(
+        _pad(q, dim), _pad(k, dim), _pad(v, dim), _pad(out, dim), lse,
+        _pad(g, dim), g_lse, causal=causal, scale=d ** -0.5)
+    if dim == d:
+        return grads
+    return tuple(x[..., :d] for x in grads)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: ``apply(q, k, v, causal)`` returns
+    ``(out, lse)``; both outputs carry gradients (the lse cotangent
+    folds into delta, as in the reference's ``_flash_lse_diff``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g is None:
+            g = torch.zeros_like(out)
+        dq, dk, dv = _backward(q, k, v, out, lse, g, g_lse, ctx.causal)
+        return dq, dk, dv, None
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def flash_attention_with_lse(q, k, v, causal: bool = False):
     """Fused attention that also returns the per-row logsumexp.
 
-    Returns (out [b, h, s, d], lse [b, h, s] float32). CPU tensors take
-    ``reference_attention_with_lse``; CUDA tensors the kernel."""
-    if q.device.type == "cpu":
-        return reference_attention_with_lse(q, k, v, causal=causal)
-    return flash_forward_cuda(q, k, v, causal)
+    Returns (out [b, h, s, d], lse [b, h, s] float32), differentiable in
+    both. CPU tensors take the plain versions; CUDA tensors the kernels."""
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)
 
 
 def flash_attention(q, k, v, causal: bool = False):
     """Fused attention for [batch, heads, seq, head_dim] inputs.
 
-    CPU tensors take ``reference_attention`` (as the reference falls back
-    to its jnp version off the TPU); CUDA tensors the kernel."""
+    Differentiable through ``FlashAttention``. Without gradients (serving
+    under ``torch.inference_mode``) it launches only the forward: CPU
+    tensors take ``reference_attention`` (as the reference falls back to
+    its jnp version off the TPU), CUDA tensors kernel B1."""
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal)[0]
     if q.device.type == "cpu":
         return reference_attention(q, k, v, causal=causal)
-    return flash_forward_cuda(q, k, v, causal)[0]
+    return _forward(q, k, v, causal)[0]

@@ -106,3 +106,136 @@ def test_kernel_entry_refuses_cpu_tensors():
     q, k, v = _torch(*_qkv((1, 2, 128, 64)))
     with pytest.raises(ValueError, match="not CUDA"):
         tattn.flash_forward_cuda(q, k, v, causal=True)
+
+
+# ---------------------------------------------------------------------------
+# backward: FlashAttention against the reference's custom_vjp
+# ---------------------------------------------------------------------------
+
+BWD_TOL = dict(atol=5e-4, rtol=5e-4)  # the reference's own kernel bar
+
+
+def _port_grads(q, k, v, causal, loss):
+    """Gradients of ``loss(out, lse)`` through the port's FlashAttention
+    on the CPU (plain forward and plain backward)."""
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out, lse = tattn.FlashAttention.apply(qt, kt, vt, causal)
+    loss(out, lse).backward()
+    return [t.grad.numpy() for t in (qt, kt, vt)]
+
+
+def _jax_flash(causal, with_lse=False):
+    fn = jattn.flash_attention_with_lse if with_lse else jattn.flash_attention
+    return lambda q_, k_, v_: fn(q_, k_, v_, causal=causal, block_q=128,
+                                 block_k=128, interpret=True)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dim", [64, 128])
+def test_flash_backward_matches_jax_interpret(dim, causal):
+    """jax.vjp of the reference's Pallas backward (interpret mode, B3/B4)
+    against the port's FlashAttention backward, random cotangent."""
+    import jax
+
+    q, k, v = _qkv((1, 2, 256, dim), seed=10)
+    g = np.random.default_rng(11).standard_normal(q.shape, dtype=np.float32)
+    _, vjp = jax.vjp(_jax_flash(causal), *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    got = _port_grads(q, k, v, causal,
+                      lambda o, _: (o * torch.from_numpy(g)).sum())
+    for a, b, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(a, np.asarray(b), **BWD_TOL,
+                                   err_msg=f"d{name}")
+
+
+def test_with_lse_loss_gradients_match_jax():
+    """The composite loss of tests/test_workloads.py:190-213 on both
+    packages: a loss on both outputs, lse nonlinearly."""
+    import jax
+
+    q, k, v = _qkv((1, 2, 256, 128), seed=12)
+
+    def jloss(q_, k_, v_):
+        out, lse = _jax_flash(True, with_lse=True)(q_, k_, v_)
+        return (out ** 2).mean() + jnp.exp(lse / 8.0).mean()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got = _port_grads(q, k, v, True, lambda o, lse: (
+        (o ** 2).mean() + torch.exp(lse / 8.0).mean()))
+    for a, b, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(a, np.asarray(b), **BWD_TOL,
+                                   err_msg=f"d{name}")
+
+
+def test_gqa_backward_matches_jax_over_repeat_kv():
+    """JAX over repeat_kv-expanded K/V, differentiated with respect to the
+    unexpanded arrays, against the port's grouped dK/dV."""
+    import jax
+
+    q, k, v = _qkv((1, 4, 256, 64), kv_heads=2, seed=13)
+    g = np.random.default_rng(14).standard_normal(q.shape, dtype=np.float32)
+    flash = _jax_flash(True)
+
+    def jfn(q_, k_, v_):
+        return flash(q_, jnp.repeat(k_, 2, axis=1), jnp.repeat(v_, 2, axis=1))
+
+    _, vjp = jax.vjp(jfn, *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    got = _port_grads(q, k, v, True,
+                      lambda o, _: (o * torch.from_numpy(g)).sum())
+    assert got[1].shape == k.shape and got[2].shape == v.shape
+    for a, b, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(a, np.asarray(b), **BWD_TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape,kv_heads", [((2, 4, 200, 64), 2),
+                                            ((1, 2, 64, 16), 1)])
+def test_reference_backward_matches_autograd(shape, kv_heads, causal):
+    """reference_attention_backward (what B3/B4 are held to on the card)
+    equals torch.autograd of reference_attention_with_lse, with an lse
+    cotangent and grouped kv heads; float64 inputs, computed in float32."""
+    q, k, v = (torch.from_numpy(a).double().requires_grad_()
+               for a in _qkv(shape, kv_heads=kv_heads, seed=15))
+    rng = np.random.default_rng(16)
+    g = torch.from_numpy(rng.standard_normal(shape)).double()
+    g_lse = torch.from_numpy(rng.standard_normal(shape[:3])).double()
+    out, lse = tattn.reference_attention_with_lse(q, k, v, causal)
+    want = torch.autograd.grad((out * g).sum() + (lse * g_lse).sum(),
+                               (q, k, v))
+    with torch.no_grad():
+        got = tattn.reference_attention_backward(q, k, v, out, lse, g,
+                                                 g_lse, causal=causal)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_cpu_backward_launches_no_kernel():
+    q, k, v = (t.requires_grad_() for t in _torch(*_qkv((1, 2, 128, 64))))
+    counters = (tattn.FLASH_FWD, tattn.FLASH_BWD_DQ, tattn.FLASH_BWD_DKV)
+    before = [c.launches for c in counters]
+    tattn.flash_attention(q, k, v, causal=True).sum().backward()
+    assert q.grad is not None and k.grad.shape == k.shape
+    assert [c.launches for c in counters] == before
+
+
+def test_backward_kernel_entry_refuses_cpu_tensors():
+    q, k, v = _torch(*_qkv((1, 2, 128, 64)))
+    out, lse = tattn.reference_attention_with_lse(q, k, v, True)
+    with pytest.raises(ValueError, match="not CUDA"):
+        tattn.flash_backward_cuda(q, k, v, out, lse, out, causal=True)
+
+
+@pytest.mark.parametrize("dim,want", [(16, 64), (64, 64), (96, 128),
+                                      (128, 128), (256, None)])
+def test_kernel_head_dim_pads_up_to_64_or_128(dim, want):
+    """Head dims run on the card zero-padded to the next kernel width
+    (the reference's rule pads to 128 lanes); above 128 raises."""
+    if want is None:
+        with pytest.raises(ValueError, match="head dim"):
+            tattn.kernel_head_dim(dim)
+    else:
+        assert tattn.kernel_head_dim(dim) == want

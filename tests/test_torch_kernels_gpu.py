@@ -8,9 +8,13 @@ imports only the port:
 
 Each kernel against its plain PyTorch version on the same inputs (made
 with numpy from a seed), then the model and the continuous engine with
-the kernel against the plain path. Tolerances: float32 1e-4 (summation
-order only); bfloat16 3e-2 (the plain version rounds QK^T to bf16, the
-kernel keeps fp32).
+the kernel against the plain path, and two training steps through the
+backward kernels. Tolerances: forward float32 1e-4 (summation order
+only), bfloat16 3e-2 (the plain version rounds QK^T to bf16, the kernel
+keeps fp32); backward relative to the largest gradient, float32 1e-4,
+bfloat16 5e-2 (the kernels round P and dS to bf16 for the tensor-core
+products; the reference's own bf16 backward bar is 0.25,
+tests/test_workloads.py:147-150).
 """
 
 import numpy as np
@@ -68,10 +72,112 @@ def test_flash_kernel_matches_plain(cuda, shape, kv_heads, dtype, tol,
     assert (got_l - want_l).abs().max().item() <= tol
 
 
-def test_flash_kernel_raises_on_unsupported_head_dim(cuda):
-    q, k, v = _qkv((1, 2, 128, 32), 2, torch.float32)
-    with pytest.raises(ValueError, match="head dim"):
-        attention.flash_attention(q, k, v, causal=True)
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _grads(q, k, v, causal, fn):
+    """(out, lse, dq, dk, dv) of ``fn`` and of the plain forward under
+    autograd, with a random output cotangent and a nonzero lse one."""
+    rng = np.random.default_rng(7)
+    g = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32))
+    g_lse = torch.from_numpy(
+        rng.standard_normal(q.shape[:3], dtype=np.float32))
+    g, g_lse = g.to(q.device, q.dtype), g_lse.to(q.device)
+    res = []
+    for f in (fn, attention.reference_attention_with_lse):
+        qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        out, lse = f(qq, kk, vv, causal)
+        torch.autograd.backward((out, lse), (g, g_lse))
+        res.append((out.detach(), lse.detach(), qq.grad, kk.grad, vv.grad))
+    return res
+
+
+@pytest.mark.parametrize("dim", [32, 256])
+def test_flash_kernel_raises_on_unsupported_head_dim(cuda, dim):
+    """d = 32 is zero-padded to the kernels' 64 and matches the plain
+    version, forward and backward; d = 256 (above 128) raises."""
+    q, k, v = _qkv((1, 2, 128, dim), 2, torch.float32)
+    if dim > 128:
+        with pytest.raises(ValueError, match="head dim"):
+            attention.flash_attention(q, k, v, causal=True)
+        return
+    got, want = _grads(q, k, v, True, attention.flash_attention_with_lse)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert _rel_err(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("shape,kv_heads", [((2, 8, 200, 64), 2),
+                                            ((1, 4, 256, 128), 4)])
+def test_flash_backward_kernels_match_plain(cuda, shape, kv_heads, dtype,
+                                            tol, causal):
+    """B3 and B4, one launch each, against the plain backward on the same
+    saved tensors, with a random g and a nonzero g_lse."""
+    q, k, v = _qkv(shape, kv_heads, dtype)
+    rng = np.random.default_rng(3)
+    g = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    g = g.cuda().to(dtype)
+    g_lse = torch.from_numpy(
+        rng.standard_normal(shape[:3], dtype=np.float32)).cuda()
+    out, lse = attention.flash_forward_cuda(q, k, v, causal)
+    dq0 = attention.FLASH_BWD_DQ.launches
+    dkv0 = attention.FLASH_BWD_DKV.launches
+    got = attention.flash_backward_cuda(q, k, v, out, lse, g, g_lse,
+                                        causal=causal)
+    torch.cuda.synchronize()
+    assert attention.FLASH_BWD_DQ.launches == dq0 + 1
+    assert attention.FLASH_BWD_DKV.launches == dkv0 + 1
+    want = attention.reference_attention_backward(q, k, v, out, lse, g,
+                                                  g_lse, causal=causal)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert torch.isfinite(a).all()
+        assert _rel_err(a, b) <= tol
+
+
+def test_autograd_through_kernels_matches_plain(cuda):
+    """A loss on both outputs through FlashAttention on the card (B1, B3,
+    B4) against autograd of the plain forward."""
+    q, k, v = _qkv((2, 8, 200, 64), 2, torch.float32, seed=4)
+    (o, lse, *got), (wo, wlse, *want) = _grads(
+        q, k, v, True, attention.flash_attention_with_lse)
+    assert _rel_err(o, wo) <= 1e-4 and _rel_err(lse, wlse) <= 1e-4
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= 1e-4
+
+
+def test_two_train_steps_on_card(cuda, monkeypatch):
+    """Two AdamW steps of a small float32 model: each kernel launches
+    once per layer per step, and losses and gradients equal those of
+    plain attention."""
+    cfg = transformer.LMConfig(vocab_size=256, num_layers=2, num_heads=2,
+                               embed_dim=128, mlp_dim=256, max_seq_len=128,
+                               dtype=torch.float32)
+    toks = torch.from_numpy(
+        np.random.default_rng(5).integers(0, 256, (2, 128))).cuda()
+
+    def run():
+        step, init = transformer.make_train_step(cfg, cuda)
+        model, opt = init(0)
+        losses = [step(model, opt, toks).item() for _ in range(2)]
+        return losses, [p.grad.clone() for p in model.parameters()]
+
+    counters = (attention.FLASH_FWD, attention.FLASH_BWD_DQ,
+                attention.FLASH_BWD_DKV)
+    before = [c.launches for c in counters]
+    losses, grads = run()
+    assert [c.launches - b for c, b in zip(counters, before)] == [4, 4, 4]
+    monkeypatch.setattr(transformer, "flash_attention",
+                        attention.reference_attention)
+    want_losses, want_grads = run()
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+    for a, b in zip(grads, want_grads):
+        assert _rel_err(a, b) <= 1e-3
 
 
 def test_model_prefill_kernel_matches_plain(cuda, monkeypatch):
