@@ -11,7 +11,9 @@ exits non-zero without a result:
 - ``kernel``: each kernel's wrapper against its plain PyTorch version on
   the card, at the serving path's shapes and edge cases, with the
   tolerances stated in KERNEL_CASES; CUDA-event times of the kernel, the
-  plain version and one PyTorch library call, beside the kernel's bound.
+  plain version and one PyTorch library call, beside the kernel's bound,
+  with the achieved TFLOP/s and the bound's share of the kernel's time,
+  and the wrapper's host time per call (host clock).
 - ``model``: DecoderLM at the serving default's full width, the kernel
   against plain attention: greedy tokens identical in float32, logits
   within atol 0.1 / rtol 0.05 in bfloat16.
@@ -27,7 +29,9 @@ exits non-zero without a result:
   ``FlashAttention.backward`` against the plain backward on the same
   inputs, random output and lse cotangents, at the training shapes and
   edge cases of BWD_CASES (tolerances there); CUDA-event times of each
-  kernel, the plain backward and SDPA's backward, beside the bounds.
+  kernel, the plain backward and SDPA's backward, beside the bounds, with
+  TFLOP/s and bound shares; B4 launched twice on the same inputs must
+  give bitwise-equal dK/dV (it sums GQA groups without atomics).
 - ``train``: the trainer (models/train.main) at the ``LMConfig()``
   default, batch 8: 6 steps with checkpoints, then a resume to step 8;
   ``benchmark_train()`` at the flagship config (3 warm-up + 10 steps):
@@ -51,6 +55,7 @@ import contextlib
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -70,6 +75,7 @@ PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # the ones reported for the kernel.
 KERNEL_CASES = [
     ("serve_b4_s1024_bf16", 4, 16, 16, 1024, 64, "bfloat16", True),
+    ("b1_s1_bf16", 1, 16, 16, 1, 64, "bfloat16", True),
     ("b1_s128_bf16", 1, 16, 16, 128, 64, "bfloat16", True),
     ("b1_s1024_bf16", 1, 16, 16, 1024, 64, "bfloat16", True),
     ("b4_s128_bf16", 4, 16, 16, 128, 64, "bfloat16", True),
@@ -83,6 +89,9 @@ KERNEL_CASES = [
     ("noncausal_d128_f32", 2, 8, 8, 256, 128, "float32", False),
     ("s200_bf16", 2, 8, 8, 200, 64, "bfloat16", True),
     ("s200_f32", 2, 8, 8, 200, 64, "float32", True),
+    ("s129_d128_bf16", 2, 8, 2, 129, 128, "bfloat16", True),
+    # the trainer default's shape (LMConfig(): d = 64)
+    ("train_b8_s2048_d64_bf16", 8, 8, 8, 2048, 64, "bfloat16", True),
     # the flagship training shape (reported as B1's training time)
     ("train_b8_s2048_d128_bf16", 8, 8, 8, 2048, 128, "bfloat16", True),
 ]
@@ -143,19 +152,49 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(b, h, kvh, s, d, dtype, causal) -> float:
-    """Least time for one flash forward: Q, K, V read once, O and LSE
-    written once, over HBM; QK^T and PV products (2 FLOP per
-    multiply-add) over the pairs this mask leaves visible, over the
-    card's peak for the input type."""
+def host_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean host time of one ``fn`` call in ms (host clock over ``iters``
+    calls, no synchronisation between them): what the wrapper costs the
+    host per launch, however short the kernel."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
+def attention_ops(b, h, s, d, causal, products: int = 2) -> float:
+    """FLOP of ``products`` attention-shaped products (2 per multiply-add)
+    over the query/key pairs the mask leaves visible."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return products * 2.0 * b * h * d * pairs
+
+
+def attention_bound_ms(b, h, kvh, s, d, dtype, causal) -> tuple[float, str]:
+    """(least ms, what bounds it) for one flash forward: Q, K, V read
+    once, O and LSE written once, over HBM; the QK^T and PV products over
+    the card's peak for the input type."""
     import torch
 
     esize = torch.empty((), dtype=getattr(torch, dtype)).element_size()
     nbytes = esize * (2 * b * h * s * d + 2 * b * kvh * s * d) + 4 * b * h * s
-    pairs = s * (s + 1) // 2 if causal else s * s
-    ops = 4.0 * b * h * d * pairs
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                     ops / PEAK_OPS_PER_S[f"torch.{dtype}"])
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = attention_ops(b, h, s, d, causal) / PEAK_OPS_PER_S[f"torch.{dtype}"]
+    return 1e3 * max(t_bytes, t_ops), \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rates(row: dict, ms_key: str, bound_key: str, ops: float,
+          prefix: str = "") -> None:
+    """Achieved TFLOP/s and the bound's share of the measured time."""
+    row[f"{prefix}tflops"] = ops / (row[ms_key] * 1e-3) / 1e12
+    row[f"{prefix}bound_share"] = row[bound_key] / row[ms_key]
 
 
 def phase_build() -> dict:
@@ -168,10 +207,44 @@ def phase_build() -> dict:
         built = dict(zip(names, pool.map(_build.compile_source, names)))
     report = {}
     for name, (_, text) in built.items():
-        report[name] = [ln.strip() for ln in text.splitlines()
-                        if "registers" in ln or "spill" in ln]
+        report.update(ptxas_report(text))
+    spills = sorted(k for k, v in report.items()
+                    if re.search(r"[1-9]\d* bytes spill", v))
     return {"phase": "build", "ok": True, "kernels": names,
-            "seconds": time.perf_counter() - t0, "ptxas": report}
+            "seconds": time.perf_counter() - t0, "ptxas": report,
+            "kernels_with_spills": spills}
+
+
+def _demangle_kernel(mangled: str) -> str:
+    """``..21flash_fwd_bf16_kernelILi128ELb1EE..`` -> ``flash_fwd_bf16_kernel
+    <128,1>`` (Itanium names carry their length before them)."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):  # the length may follow other digits
+            ident = mangled[m.end():m.end() + int(m.group()[i:])]
+            if ident.endswith("_kernel"):
+                args = re.match(r"I((?:L[ib]\d+E)+)E",
+                                mangled[m.end() + len(ident):])
+                vals = re.findall(r"L[ib](\d+)E", args.group(1)) if args \
+                    else []
+                return f"{ident}<{','.join(vals)}>"
+    return mangled
+
+
+def ptxas_report(text: str) -> dict:
+    """``-Xptxas -v`` output as {"kernel<template args>": "Used N
+    registers; spill stores, spill loads"}, plus any C75xx advice."""
+    report, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = _demangle_kernel(m.group(1))
+            report[name] = ""
+        elif name and ("spill" in ln or "Used" in ln):
+            report[name] = (report[name] + "; " + ln.split(":")[-1].strip()
+                            if "Used" in ln else ln.strip())
+        elif "C75" in ln:
+            report.setdefault("advice", []).append(ln.strip()[:200])
+    return report
 
 
 def phase_kernel() -> tuple[dict, dict]:
@@ -209,14 +282,18 @@ def phase_kernel() -> tuple[dict, dict]:
             "max_abs_err_lse": err_l, "tol": TOL[dt],
             "ms": cuda_ms(lambda: attention.flash_forward_cuda(
                 q, k, v, causal)),
+            "host_ms": host_ms(lambda: attention.flash_forward_cuda(
+                q, k, v, causal)),
             "plain_ms": cuda_ms(
                 lambda: attention.reference_attention_with_lse(
                     q, k, v, causal), iters=5),
             "library_ms": cuda_ms(
                 lambda: F.scaled_dot_product_attention(
                     q, ke, ve, is_causal=causal)),
-            "bound_ms": attention_bound_ms(b, h, kvh, s, d, dt, causal),
         }
+        row["bound_ms"], row["bound_by"] = attention_bound_ms(
+            b, h, kvh, s, d, dt, causal)
+        rates(row, "ms", "bound_ms", attention_ops(b, h, s, d, causal))
         cases.append(row)
     main = cases[0]
     train = next(c for c in cases if c["case"] == TRAIN_FWD_CASE)
@@ -226,10 +303,11 @@ def phase_kernel() -> tuple[dict, dict]:
         "replaces": attention.FLASH_FWD.replaces,
         "max_abs_err": worst, "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": "bytes", "library_ms": main["library_ms"],
-        "timed_case": main["case"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "timed_case": main["case"], "host_ms": main["host_ms"],
         "train_case": {k: train[k] for k in (
-            "case", "ms", "plain_ms", "library_ms", "bound_ms")},
+            "case", "ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
+            "tflops", "bound_share")},
     }
     return {"phase": "kernel", "ok": True, "cases": cases}, summary
 
@@ -317,9 +395,24 @@ def phase_kernel_bwd() -> tuple[dict, list]:
             row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
                 o, (qs, ke, ve), g, retain_graph=True))
             del o, qs, ke, ve
-            for kernel in ("dq", "dkv"):
+            for kernel, products in (("dq", 3), ("dkv", 4)):
                 row[f"{kernel}_bound_ms"], row[f"{kernel}_bound_by"] = \
                     bwd_bound(b, h, kvh, s, d, dt, causal, kernel)
+                rates(row, f"{kernel}_ms", f"{kernel}_bound_ms",
+                      attention_ops(b, h, s, d, causal, products),
+                      prefix=f"{kernel}_")
+            if dt == "bfloat16":
+                # B4 sums each GQA group in registers: two launches on the
+                # same inputs must agree bit for bit.
+                first = attention.flash_bwd_dkv_cuda(q, k, v, g, lse, delta,
+                                                     causal)
+                second = attention.flash_bwd_dkv_cuda(q, k, v, g, lse,
+                                                      delta, causal)
+                if not all(torch.equal(x, y) for x, y in zip(first, second)):
+                    raise AssertionError(f"kernel_bwd {name}: B4 is not "
+                                         f"deterministic")
+                row["dkv_deterministic"] = True
+                del first, second
         cases.append(row)
         del q, k, v, g, qq, kk, vv, out, lse, want
         torch.cuda.empty_cache()

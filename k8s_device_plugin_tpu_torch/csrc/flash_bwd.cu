@@ -8,8 +8,8 @@
 // - B4 `_bwd_dkv_kernel` (attention.py:275, pallas_call at :413):
 //   dV = sum_q P^T dO, dK = scale * sum_q dS^T Q.
 // Both recompute the score tile from Q, K and the forward's saved
-// logsumexp: S = scale * Q K^T (masked with -1e30 above the diagonal when
-// causal), P = exp(S - LSE), dP = dO V^T, dS = P * (dP - delta), where
+// logsumexp: S = scale * Q K^T (masked above the diagonal when causal),
+// P = exp(S - LSE), dP = dO V^T, dS = P * (dP - delta), where
 // delta = rowsum(dO * O) - g_lse comes in precomputed (the reference
 // computes it in XLA outside its kernels; the port in plain torch).
 //
@@ -18,9 +18,9 @@
 //   dimension and carries the accumulator in VMEM scratch. Blocks here run
 //   in no order, so each block owns its output tile and loops itself:
 //   B3 one block per (batch*head, 64 q rows), looping over K/V tiles up to
-//   the diagonal when causal; B4 one block per (batch, KV HEAD, 64 keys),
+//   the diagonal when causal; B4 one block per (batch, KV HEAD, key tile),
 //   looping over that kv head's n_rep q heads and, when causal, over the
-//   q tiles from the diagonal on (the TPU's index-map clamps at :396-405
+//   q steps from the diagonal on (the TPU's index-map clamps at :396-405
 //   become loop bounds: skipped tiles are never loaded).
 // - GQA: B4 sums the n_rep q heads that share a kv head inside the block,
 //   in fp32 registers, so dK/dV come out unexpanded ([b, kv_heads, s, d]),
@@ -39,23 +39,37 @@
 // 0.139 ms at 989 TFLOP/s, against ~0.05 ms and ~0.06 ms to move their
 // bytes at 3.35 TB/s. Both are compute-bound at the roofline.
 //
-// Two implementations, by input type, as in flash_fwd.cu:
-// - bfloat16: tensor cores through mma.sync m16n8k16 with fp32
-//   accumulation. Four warps own 16 rows each (q rows in B3, keys in B4).
-//   S and dP land in fp32 accumulators; P and dS are rounded to bf16 and
-//   repacked in registers as the A operand of the next product, so no
-//   score tile touches shared memory. Operand tiles are staged in shared
-//   memory with plain 16-byte loads; B fragments of row-major tiles read
-//   along k are gathered from 16-bit loads. wgmma, TMA and pipelined
-//   copies are later work.
+// Implementations, by kernel and input type:
+// - B4, bfloat16, built for Hopper's tensor cores. A block owns 128 keys of
+//   one kv head and runs three warpgroups. K and V are loaded once by TMA;
+//   one producer warp then streams the Q and dO tiles of each q step into a
+//   ring of shared-memory stages (TMA, mbarrier completion) with the step's
+//   LSE (times log2(e)) and delta beside them; two consumer warpgroups of
+//   64 keys each compute, so copies overlap products, and setmaxnreg moves
+//   registers to them. The score tile is kept transposed, keys as the wgmma
+//   M dimension: S^T = K Q^T and dP^T = V dO^T read every operand K-major
+//   from shared memory; P^T = 2^(S^T * scale * log2(e) - LSE * log2(e)) and
+//   dS^T = P^T (dP^T - delta) are rounded to bf16 and repacked in registers
+//   as the A operands of dV += P^T dO and dK += dS^T Q, whose B operands
+//   (dO, Q) are read MN-major from the same swizzled tiles. Only steps on
+//   the diagonal are masked; a q row past the end has LSE = +inf, so its
+//   probabilities are 0 without a mask. Which key tile a block owns and
+//   which q steps it loops over come from the launch plan's schedule
+//   (ops/attention.py `flash_bwd_dkv_plan`), one int4 per block: it
+//   launches the lowest key tiles first, which own the most q steps under
+//   a causal mask.
+// - B3, bfloat16: tensor cores through mma.sync m16n8k16 with fp32
+//   accumulation. Four warps own 16 q rows each. S and dP land in fp32
+//   accumulators; dS is rounded to bf16 and repacked in registers as the A
+//   operand of dS K. Operand tiles are staged in shared memory with plain
+//   16-byte loads; K's B fragments read along k are gathered from 16-bit
+//   loads.
 // - float32: FP32 FMA on the CUDA cores (tensor cores would be TF32), 256
 //   threads each owning a 4x4 micro-tile of the 64x64 score tile, dS (and
 //   P) passed through shared memory to the accumulating products.
 // Times against the bound are in PERF.md.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -275,165 +289,297 @@ bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// q rows per step of B4's loop: 32 at d = 128 keeps the dK and dV
-// accumulators (2 x 64 fp32 per lane) and the score tiles in registers.
-template <int D>
-__host__ __device__ constexpr int dkv_bq() {
-  return D == 128 ? 32 : 64;
-}
+// ---------------------------------------------------------------------------
+// B4, bfloat16: TMA + wgmma, warp-specialised
+// ---------------------------------------------------------------------------
 
-template <int D>
-constexpr size_t dkv_bf16_smem() {
-  // K, V tiles [64][D + 8], Q, dO tiles [BQ][D + 8] bf16; LSE, delta [BQ]
-  return sizeof(bf16) * (2 * kBlk + 2 * dkv_bq<D>()) * (D + 8) +
-         sizeof(float) * 2 * dkv_bq<D>();
-}
+namespace dkv {
 
-// B4, bf16: one block per (batch, kv head, 64 keys).
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kMmaThreads)
-bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+using namespace hopper;
+
+constexpr int kConsumers = 2;            // consumer warpgroups, 64 keys each
+constexpr int kTileK = 64 * kConsumers;  // keys per block
+// q rows per step. 64 keeps a consumer's dK and dV accumulators (2 x d/2
+// fp32) and its S^T and dP^T tiles (2 x 32 fp32) within the consumers'
+// 240 registers at d = 128 without spills; 32-row steps (narrower wgmma)
+// ran slower on the card.
+constexpr int kStepQ = 64;
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared-memory plan for q steps of BQ rows (byte offsets; operand tiles
+// 1024-byte aligned). `flash_bwd_dkv_plan` in ops/attention.py states
+// the same numbers and the entry point refuses a plan that disagrees.
+template <int D, int BQ>
+struct Plan {
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kKBytes = kTileK * D * 2;  // K (or V) of the block
+  static constexpr int kQBytes = BQ * D * 2;      // one Q (or dO) step
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKBytes;
+  static constexpr int kQ = kV + kKBytes;
+  static constexpr int kDO = kQ + kStages * kQBytes;
+  static constexpr int kRows = kDO + kStages * kQBytes;  // LSE*log2e, delta
+  static constexpr int kBar = kRows + kStages * 2 * BQ * 4;
+  // + barriers, + slack to align the dynamic window to 1024 bytes
+  static constexpr int kSmem = 1024 + kBar + (2 * kStages + 1) * 8;
+};
+
+template <int D, int BQ, bool CAUSAL>
+__global__ void __maxnreg__(kEntryRegs)
+bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int heads, int kv_heads, int seq_q,
-                    int seq_k, float scale) {
-  constexpr int BQ = dkv_bq<D>();
-  constexpr int S = D + 8;
-  constexpr int KS = D / 16;  // k-steps over d
-  constexpr int NT = BQ / 8;  // q n-tiles of S^T and dP^T
-  constexpr int DT = D / 8;   // d n-tiles of dK and dV
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kBlk * S;
-  bf16* qs = vs + kBlk * S;
-  bf16* dos = qs + BQ * S;
-  float* lse_s = reinterpret_cast<float*>(dos + BQ * S);
-  float* delta_s = lse_s + BQ;
+                    bf16* __restrict__ dv, const int4* __restrict__ schedule,
+                    int heads, int kv_heads, int seq_q, int seq_k,
+                    float scale) {
+  using P = Plan<D, BQ>;
+  extern __shared__ __align__(1024) uint8_t tma_smem[];
+  uint8_t* smem = tma_smem + ((1024 - (smem_u32(tma_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::kBar);
+  uint64_t* empty = full + P::kStages;
+  uint64_t* kvbar = empty + P::kStages;
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int k0 = blockIdx.x * kBlk;
-  const int bkv = blockIdx.y;
+  // This block's work, from the launch plan: (b*kv_heads, key tile, first q
+  // step, end q step), the steps taken for each of the group's q heads.
+  const int4 work = __ldg(schedule + blockIdx.x);
+  const int bkv = work.x;
+  const int k0 = work.y * kTileK;
   const int b = bkv / kv_heads;
   const int kvh = bkv - b * kv_heads;
   const int n_rep = heads / kv_heads;
-  const size_t kv_off = (size_t)bkv * seq_k * D;
 
-  load_tile<D, kBlk>(ks, k + kv_off, k0, seq_k);
-  load_tile<D, kBlk>(vs, v + kv_off, k0, seq_k);
-
-  // Each lane holds two keys of its warp's 16: g ("lo") and g + 8 ("hi").
-  const int key_lo = k0 + warp * 16 + g;
-  const int key_hi = key_lo + 8;
-  float dka[DT][4], dva[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dka[dt][j] = dva[dt][j] = 0.f;
-
-  for (int r = 0; r < n_rep; ++r) {
-    const int bh = b * heads + kvh * n_rep + r;
-    const bf16* qp = q + (size_t)bh * seq_q * D;
-    const bf16* dop = dout + (size_t)bh * seq_q * D;
-    const float* lse_bh = lse + (size_t)bh * seq_q;
-    const float* delta_bh = delta + (size_t)bh * seq_q;
-    // Causal: q rows before this key tile see none of its keys.
-    for (int q0 = CAUSAL ? k0 : 0; q0 < seq_q; q0 += BQ) {
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<D, BQ>(qs, qp, q0, seq_q);
-      load_tile<D, BQ>(dos, dop, q0, seq_q);
-      if (threadIdx.x < BQ) {
-        const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < seq_q ? lse_bh[row] : 0.f;
-        delta_s[threadIdx.x] = row < seq_q ? delta_bh[row] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T (Q and dO are [q][d]: B stored
-      // [n][k]).
-      float s[NT][4], dp[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[nt][j] = dp[nt][j] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t ak[4], av[4];
-        frag_a(ak, ks + warp * 16 * S + kk * 16, S, g, t);
-        frag_a(av, vs + warp * 16 * S + kk * 16, S, g, t);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          uint32_t b0, b1;
-          frag_b_nk(b0, b1, qs + nt * 8 * S + kk * 16, S, g, t);
-          mma_bf16(s[nt], ak, b0, b1);
-          frag_b_nk(b0, b1, dos + nt * 8 * S + kk * 16, S, g, t);
-          mma_bf16(dp[nt], av, b0, b1);
-        }
-      }
-
-      // P^T where visible (key <= q, q in range), else 0, kept in s[];
-      // dS^T = P^T (dP^T - delta[q]), kept in dp[].
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = nt * 8 + 2 * t + j;
-          const int qc = q0 + col;
-          const bool in = qc < seq_q;
-          const float lc = lse_s[col];
-          const float dc = delta_s[col];
-          const float p_lo = (in && (!CAUSAL || key_lo <= qc))
-                                 ? expf(s[nt][j] * scale - lc) : 0.f;
-          const float p_hi = (in && (!CAUSAL || key_hi <= qc))
-                                 ? expf(s[nt][2 + j] * scale - lc) : 0.f;
-          s[nt][j] = p_lo;
-          s[nt][2 + j] = p_hi;
-          dp[nt][j] = p_lo * (dp[nt][j] - dc);
-          dp[nt][2 + j] = p_hi * (dp[nt][2 + j] - dc);
-        }
-      }
-
-      // dV += P^T dO and dK += dS^T Q: the A operands are in registers
-      // (k = q); dO and Q [q][d] are B stored [k][n].
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t pa[4], da[4];
-        c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-        c_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-        for (int dt = 0; dt < DT; ++dt) {
-          uint32_t b0, b1;
-          frag_b_kn(b0, b1, dos + kk * 16 * S + dt * 8, S, g, t);
-          mma_bf16(dva[dt], pa, b0, b1);
-          frag_b_kn(b0, b1, qs + kk * 16 * S + dt * 8, S, g, t);
-          mma_bf16(dka[dt], da, b0, b1);
-        }
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes
+      mbar_init(&empty[s], kConsumers);
     }
+    mbar_init(kvbar, 1);
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  bf16* dk_lo = dk + kv_off + (size_t)key_lo * D;
-  bf16* dv_lo = dv + kv_off + (size_t)key_lo * D;
+  const int wg = warpgroup();
+  if (wg == kConsumers) {
+    // Producer warp: K and V once, then Q, dO (TMA) and the step's LSE and
+    // delta (plain loads by the 32 lanes) for every q step.
+    regs_shrink<kProducerRegs>();
+    if (threadIdx.x < kConsumers * 128 + 32) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        prefetch_map(&tq);
+        prefetch_map(&tdo);
+        mbar_expect_tx(kvbar, 2 * P::kKBytes);
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (key_lo < seq_k) {
-      *reinterpret_cast<__nv_bfloat162*>(dk_lo + col) =
-          __floats2bfloat162_rn(dka[dt][0] * scale, dka[dt][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv_lo + col) =
-          __floats2bfloat162_rn(dva[dt][0], dva[dt][1]);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(smem + P::kK + c * kTileK * 128, &tk, kvbar, c * 64, k0,
+                   bkv);
+          tma_load(smem + P::kV + c * kTileK * 128, &tv, kvbar, c * 64, k0,
+                   bkv);
+        }
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int r = 0; r < n_rep; ++r) {
+        const int bh = b * heads + kvh * n_rep + r;
+        const float* lse_bh = lse + (size_t)bh * seq_q;
+        const float* delta_bh = delta + (size_t)bh * seq_q;
+        for (int i = work.z; i < work.w; ++i) {
+          const int q0 = i * BQ;
+          mbar_wait(&empty[stage], phase ^ 1);
+          float* rows =
+              reinterpret_cast<float*>(smem + P::kRows + stage * 2 * BQ * 4);
+          for (int j = lane; j < BQ; j += 32) {
+            const int q = q0 + j;
+            // A row past the end: LSE = +inf makes its probabilities 0.
+            rows[j] = q < seq_q ? lse_bh[q] * kLog2e : INFINITY;
+            rows[BQ + j] = q < seq_q ? delta_bh[q] : 0.f;
+          }
+          if (lane == 0) {
+            mbar_expect_tx(&full[stage], 2 * P::kQBytes);
+            uint8_t* qs = smem + P::kQ + stage * P::kQBytes;
+            uint8_t* dos = smem + P::kDO + stage * P::kQBytes;
+#pragma unroll
+            for (int c = 0; c < D / 64; ++c) {
+              tma_load(qs + c * BQ * 128, &tq, &full[stage], c * 64, q0, bh);
+              tma_load(dos + c * BQ * 128, &tdo, &full[stage], c * 64, q0,
+                       bh);
+            }
+          } else {
+            mbar_arrive(&full[stage]);
+          }
+          if (++stage == P::kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
     }
-    if (key_hi < seq_k) {
-      *reinterpret_cast<__nv_bfloat162*>(dk_lo + 8 * D + col) =
-          __floats2bfloat162_rn(dka[dt][2] * scale, dka[dt][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv_lo + 8 * D + col) =
-          __floats2bfloat162_rn(dva[dt][2], dva[dt][3]);
+  } else {
+    // Consumer warpgroup wg: keys k0 + 64 wg .. + 63. Each thread holds two
+    // keys (lo, hi = lo + 8) of the wgmma accumulator layout.
+    regs_grow<kConsumerRegs>();
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int key_first = k0 + wg * 64;
+    const int key_lo = key_first + (t / 32) * 16 + lane / 4;
+    const int key_hi = key_lo + 8;
+    const int cp = 2 * (lane % 4);
+    const float sl2 = scale * kLog2e;
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    const uint8_t* ks = smem + P::kK + wg * 64 * 128;
+    const uint8_t* vs = smem + P::kV + wg * 64 * 128;
+
+    mbar_wait(kvbar, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int r = 0; r < n_rep; ++r) {
+      for (int i = work.z; i < work.w; ++i) {
+        const int q0 = i * BQ;
+        mbar_wait(&full[stage], phase);
+        // Causal: a step wholly before this warpgroup's first key adds 0.
+        if (!CAUSAL || q0 + BQ > key_first) {
+          const uint8_t* qs = smem + P::kQ + stage * P::kQBytes;
+          const uint8_t* dos = smem + P::kDO + stage * P::kQBytes;
+          const float* rows =
+              reinterpret_cast<const float*>(smem + P::kRows + stage * 2 * BQ * 4);
+
+          // S^T = K Q^T and dP^T = V dO^T, all operands K-major.
+          float s[BQ / 2], dp[BQ / 2];
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss<BQ, 0>(
+                s,
+                desc_sw128(ks + (kk / 4) * kTileK * 128 + (kk % 4) * 32, 16,
+                           1024),
+                desc_sw128(qs + (kk / 4) * BQ * 128 + (kk % 4) * 32, 16, 1024),
+                kk);
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss<BQ, 0>(
+                dp,
+                desc_sw128(vs + (kk / 4) * kTileK * 128 + (kk % 4) * 32, 16,
+                           1024),
+                desc_sw128(dos + (kk / 4) * BQ * 128 + (kk % 4) * 32, 16,
+                           1024),
+                kk);
+          wg_commit();
+          wg_wait<0>();
+          fence_regs(s);
+          fence_regs(dp);
+
+          // P^T (masked only on the diagonal) into s, dS^T into dp.
+          const bool diag = CAUSAL && key_first + 63 > q0;
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j) {
+            const float2 l2 =
+                *reinterpret_cast<const float2*>(rows + 8 * j + cp);
+            const float2 dl =
+                *reinterpret_cast<const float2*>(rows + BQ + 8 * j + cp);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float lv = e ? l2.y : l2.x;
+              const float dv_ = e ? dl.y : dl.x;
+              const int q = q0 + 8 * j + cp + e;
+              float p_lo = exp2_approx(fmaf(s[4 * j + e], sl2, -lv));
+              float p_hi = exp2_approx(fmaf(s[4 * j + 2 + e], sl2, -lv));
+              if (diag) {
+                if (key_lo > q) p_lo = 0.f;
+                if (key_hi > q) p_hi = 0.f;
+              }
+              s[4 * j + e] = p_lo;
+              s[4 * j + 2 + e] = p_hi;
+              dp[4 * j + e] = p_lo * (dp[4 * j + e] - dv_);
+              dp[4 * j + 2 + e] = p_hi * (dp[4 * j + 2 + e] - dv_);
+            }
+          }
+
+          // dV += P^T dO and dK += dS^T Q: A from registers, B MN-major.
+          uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+          acc_to_a<BQ>(pa, s);
+          acc_to_a<BQ>(da, dp);
+          wg_fence();
+#pragma unroll
+          for (int kq = 0; kq < BQ / 16; ++kq)
+            wgmma_rs<D, 1>(dva, pa[kq],
+                           desc_sw128(dos + kq * 2048, BQ * 128, 1024), 1);
+#pragma unroll
+          for (int kq = 0; kq < BQ / 16; ++kq)
+            wgmma_rs<D, 1>(dka, da[kq],
+                           desc_sw128(qs + kq * 2048, BQ * 128, 1024), 1);
+          wg_commit();
+          wg_wait<0>();
+          fence_regs(dva);
+          fence_regs(dka);
+          fence_regs(pa);
+          fence_regs(da);
+        }
+        if (t == 0) mbar_arrive(&empty[stage]);
+        if (++stage == P::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+
+    const size_t base = (size_t)bkv * seq_k;
+    bf16* dk_lo = dk + (base + key_lo) * D;
+    bf16* dv_lo = dv + (base + key_lo) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + cp;
+      if (key_lo < seq_k) {
+        *reinterpret_cast<__nv_bfloat162*>(dk_lo + col) = __floats2bfloat162_rn(
+            dka[4 * j] * scale, dka[4 * j + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv_lo + col) =
+            __floats2bfloat162_rn(dva[4 * j], dva[4 * j + 1]);
+      }
+      if (key_hi < seq_k) {
+        *reinterpret_cast<__nv_bfloat162*>(dk_lo + 8 * D + col) =
+            __floats2bfloat162_rn(dka[4 * j + 2] * scale,
+                                  dka[4 * j + 3] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv_lo + 8 * D + col) =
+            __floats2bfloat162_rn(dva[4 * j + 2], dva[4 * j + 3]);
+      }
     }
   }
 }
+
+template <int D, int BQ, bool CAUSAL>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, void* dk, void* dv,
+           int batch, int heads, int kv_heads, int seq_q, int seq_k,
+           const int* plan, const int* schedule, float scale,
+           cudaStream_t stream) {
+  using P = Plan<D, BQ>;
+  if (plan[2] != P::kStages || plan[3] != P::kSmem || plan[4] <= 0 ||
+      schedule == nullptr)
+    return kErrPlan;
+  CUtensorMap tq, tk, tv, tdo;
+  int err;
+  if ((err = make_map_bf16(&tq, q, D, seq_q, batch * heads, BQ)) ||
+      (err = make_map_bf16(&tdo, dout, D, seq_q, batch * heads, BQ)) ||
+      (err = make_map_bf16(&tk, k, D, seq_k, batch * kv_heads, kTileK)) ||
+      (err = make_map_bf16(&tv, v, D, seq_k, batch * kv_heads, kTileK)))
+    return err;
+  auto kernel = bwd_dkv_bf16_kernel<D, BQ, CAUSAL>;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (rc != cudaSuccess) return (int)rc;
+  kernel<<<plan[4], kThreads, P::kSmem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), reinterpret_cast<const int4*>(schedule), heads,
+      kv_heads, seq_q, seq_k, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace dkv
 
 // ---------------------------------------------------------------------------
 // float32: FP32 FMA on the CUDA cores
@@ -736,6 +882,9 @@ struct Args {
   int batch, heads, kv_heads, seq_q, seq_k;
   float scale;
   cudaStream_t stream;
+  const int* plan;      // B4 bfloat16: keys per block, q rows per step,
+                        // stages, shared-memory bytes, blocks
+  const int* schedule;  // B4 bfloat16: one int4 per block (device memory)
 };
 
 template <typename Kernel>
@@ -772,28 +921,24 @@ int launch_dq(int dtype, const Args& a) {
 
 template <int D, bool CAUSAL>
 int launch_dkv(int dtype, const Args& a) {
-  const dim3 grid((a.seq_k + kBlk - 1) / kBlk, a.batch * a.kv_heads);
-  int err;
   if (dtype == 0) {
+    const dim3 grid((a.seq_k + kBlk - 1) / kBlk, a.batch * a.kv_heads);
     auto kernel = bwd_dkv_f32_kernel<D, CAUSAL>;
+    int err;
     if ((err = set_smem(kernel, dkv_f32_smem<D>())) != 0) return err;
     kernel<<<grid, kFmaThreads, dkv_f32_smem<D>(), a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
         a.heads, a.kv_heads, a.seq_q, a.seq_k, a.scale);
-  } else if (dtype == 1) {
-    auto kernel = bwd_dkv_bf16_kernel<D, CAUSAL>;
-    if ((err = set_smem(kernel, dkv_bf16_smem<D>())) != 0) return err;
-    kernel<<<grid, kMmaThreads, dkv_bf16_smem<D>(), a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-        a.heads, a.kv_heads, a.seq_q, a.seq_k, a.scale);
-  } else {
-    return -1;
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (dtype != 1) return hopper::kErrUnsupported;
+  if (a.plan[0] != dkv::kTileK || a.plan[1] != dkv::kStepQ)
+    return hopper::kErrPlan;
+  return dkv::launch<D, dkv::kStepQ, CAUSAL>(
+      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.batch, a.heads,
+      a.kv_heads, a.seq_q, a.seq_k, a.plan, a.schedule, a.scale, a.stream);
 }
 
 // which: 0 = B3 (dQ), 1 = B4 (dK/dV).
@@ -818,8 +963,14 @@ int dispatch(int which, int head_dim, int dtype, int causal, const Args& a) {
 // C entry points for ctypes. dtype: 0 = float32, 1 = bfloat16. Inputs are
 // contiguous [batch, heads, seq_q, d] (q, dout, and dq) and [batch,
 // kv_heads, seq_k, d] (k, v, dk, dv); lse and delta are [batch, heads,
-// seq_q] fp32. Outputs are in the input dtype. Each returns 0, the CUDA
-// error of the launch, or -1 for a dtype / head dim it does not take.
+// seq_q] fp32. Outputs are in the input dtype. B4's bfloat16 kernel takes
+// its launch plan from ops/attention.py: keys per block, q rows per step,
+// stages and shared-memory bytes, which must match this build, and the
+// schedule, `blocks` int4s in device memory (b*kv_heads, key tile, first
+// and end q step), one per block in launch order. float32 and B3 take
+// none (0s, NULL). Each returns 0, the CUDA error of the
+// launch, or a negative hopper::kErr* code (-1: dtype / head dim not
+// taken).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq, int batch, int heads,
@@ -833,12 +984,16 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
-                             const float* delta, void* dk, void* dv, int batch,
-                             int heads, int kv_heads, int seq_q, int seq_k,
-                             int head_dim, int dtype, int causal, float scale,
-                             void* stream) {
+                             const float* delta, void* dk, void* dv,
+                             const int* schedule, int batch, int heads,
+                             int kv_heads, int seq_q, int seq_k, int head_dim,
+                             int dtype, int causal, int block_k, int block_q,
+                             int stages, int smem_bytes, int blocks,
+                             float scale, void* stream) {
+  const int plan[5] = {block_k, block_q, stages, smem_bytes, blocks};
   const Args a{q,     k,     v,     dout,  lse,   delta,
                nullptr, dk,  dv,    batch, heads, kv_heads,
-               seq_q, seq_k, scale, static_cast<cudaStream_t>(stream)};
+               seq_q, seq_k, scale, static_cast<cudaStream_t>(stream), plan,
+               schedule};
   return dispatch(1, head_dim, dtype, causal, a);
 }

@@ -1,4 +1,4 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA C++.
+// Flash-attention forward for Hopper (sm_90a), CUDA C++: kernel B1.
 //
 // Replaces the Pallas TPU kernel k8s_device_plugin_tpu/ops/attention.py
 // `_flash_forward` -> `_attn_kernel` (the forward grid cell, pallas_call at
@@ -10,32 +10,40 @@
 // What differs from the TPU kernel, and why:
 // - The TPU walks the k-block grid axis in order and carries m/l/acc in
 //   VMEM scratch across grid steps. Blocks here run in no order, so one
-//   thread block owns one (batch*head, 64-row q tile) and loops over the
-//   K/V tiles itself.
+//   thread block owns one (batch*head, q tile) and loops over the K/V
+//   tiles itself.
 // - Causal blocks stop at the diagonal instead of clamping the fetch
 //   index: tiles above it are never loaded.
 // - LSE is written as one fp32 per row, not a 128-lane broadcast (that
 //   layout was a Mosaic constraint), and the head dim is not padded to
 //   128: d = 64 and d = 128 are compiled as they are.
 // - Any sequence length: the ragged last tile is masked (q rows past the
-//   end are not stored, keys past the end score -1e30).
+//   end are not stored, keys past the end are masked out).
 // - GQA without expanding K/V: q head h reads kv head h / (heads /
 //   kv_heads), the repeat_kv order of models/transformer.py.
 //
-// What bounds it on an H100: at [4, 16, 1024, 64] bf16 causal it must move
-// about 34 MB (Q, K, V read once, O written once), about 10 us at 3.35 TB/s,
-// and do about 8.6 GFLOP of products (4.3 GFLOP causal), about 9 us (4 us)
-// at the 989 TFLOP/s bf16 tensor-core rate: memory-bound at the roofline.
+// What bounds it on an H100: at the training shape [8, 8, 2048, 128] bf16
+// causal it does 68.7 GFLOP of products, 0.069 ms at the 989 TFLOP/s bf16
+// tensor-core rate, against ~0.03 ms to move its bytes: compute-bound. At
+// the serving shape [4, 16, 1024, 64] the two are close (0.010 ms of
+// bytes, 0.009 ms of products).
 //
 // Two kernels, by input type:
-// - bfloat16 (the serving path): tensor cores through mma.sync m16n8k16.
-//   Four warps own 16 query rows each; Q stays in registers as A
-//   fragments, S = QK^T lands in fp32 accumulators, the softmax runs on
-//   those registers (row statistics reduced across the four lanes that
-//   share a row), and P is repacked to bf16 in registers as the A operand
-//   of PV — the score tile never touches shared memory. K/V tiles are
-//   staged in shared memory with plain 16-byte loads; wgmma, TMA and
-//   pipelined copies are later work.
+// - bfloat16, built for Hopper's tensor cores. A block owns 128 q rows and
+//   runs three warpgroups. One producer thread issues TMA loads (Q once,
+//   then K and V tiles of 128 keys into a ring of shared-memory stages,
+//   completion on mbarriers); two consumer warpgroups of 64 q rows each
+//   compute, so copies overlap products. setmaxnreg moves registers from
+//   the producer to the consumers. S = Q K^T is a wgmma with both operands
+//   in shared memory (K-major); the softmax runs on the fp32 accumulator
+//   in base 2 with scale * log2(e) folded into one FFMA per score; P is
+//   rounded to bf16 and repacked in registers as the A operand of
+//   O += P V, whose B operand is V read MN-major from the same swizzled
+//   tile (no transposed copy). Only the diagonal tile and the ragged last
+//   tile are masked. Which q tile a block owns and which K/V tiles it
+//   loops over come from the launch plan's schedule (ops/attention.py
+//   `flash_fwd_plan`), one int4 per block: it launches the heaviest causal
+//   tiles first, so the short ones fill the tail.
 // - float32: FP32 FMA on the CUDA cores (a tensor-core product would be
 //   TF32 and lose the float32 reference's precision). 256 threads, a
 //   64x64 score tile, each thread a 4x4 micro-tile of scores and a
@@ -44,233 +52,248 @@
 //   conflicts.
 // Times against the bound are in PERF.md.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;            // query rows per block
-constexpr int kBK = 64;            // keys per K/V tile
+using bf16 = __nv_bfloat16;
+using namespace hopper;
+
+constexpr int kBQ = 64;            // float32: query rows per block
+constexpr int kBK = 64;            // float32: keys per K/V tile
 constexpr float kNegInf = -1e30f;  // the reference's mask value
 
 // ---------------------------------------------------------------------------
-// bfloat16: mma.sync m16n8k16 (fp32 accumulate)
+// bfloat16: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
+constexpr int kConsumers = 2;            // consumer warpgroups, 64 rows each
+constexpr int kTileQ = 64 * kConsumers;  // q rows per block
+constexpr int kTileK = 128;              // keys per K/V stage
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr float kLog2e = 1.4426950408889634f;
 
+// Shared-memory plan (byte offsets; operand tiles 1024-byte aligned). The
+// launch plan in ops/attention.py (`flash_fwd_plan`) states the same
+// numbers and the entry point refuses a plan that disagrees.
 template <int D>
-constexpr size_t mma_smem_bytes() {
-  // Q, K, V tiles of [64][D + 8] bf16 (8 elements of padding per row
-  // spread the fragment loads over all banks)
-  return sizeof(__nv_bfloat16) * 3 * kBQ * (D + 8);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Rows [row0, row0 + 64) of a [rows, D] bf16 matrix into a [64][D + 8]
-// shared tile, 16 bytes per load, zeros past `rows`.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int rows) {
-  constexpr int S = D + 8;
-  for (int idx = threadIdx.x; idx < kBQ * (D / 8); idx += kMmaThreads) {
-    const int r = idx / (D / 8);
-    const int c = (idx % (D / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows)
-      x = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * S + c) = x;
-  }
-}
+struct FwdPlan {
+  // as many stages as fit beside Q: 148,552 / 230,456 bytes at d = 64 / 128
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kQBytes = kTileQ * D * 2;
+  static constexpr int kKVBytes = kTileK * D * 2;  // one K (or V) stage
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBar = kV + kStages * kKVBytes;
+  // + barriers, + slack to align the dynamic window to 1024 bytes
+  static constexpr int kSmem = 1024 + kBar + (2 * kStages + 1) * 8;
+};
 
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                      int heads, int kv_heads, int seq_q, int seq_k,
-                      float scale) {
-  constexpr int S = D + 8;     // shared row stride, elements
-  constexpr int KS = D / 16;   // k-steps of QK^T
-  constexpr int NT = kBK / 8;  // score n-tiles (8 keys each)
-  constexpr int DT = D / 8;    // output n-tiles (8 columns each)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBQ * S;
-  __nv_bfloat16* vs = ks + kBK * S;
-  const unsigned short* vh = reinterpret_cast<const unsigned short*>(vs);
+__global__ void __maxnreg__(kEntryRegs)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      bf16* __restrict__ o, float* __restrict__ lse,
+                      const int4* __restrict__ schedule, int heads,
+                      int kv_heads, int seq_q, int seq_k, float scale) {
+  using P = FwdPlan<D>;
+  extern __shared__ __align__(1024) uint8_t tma_smem[];
+  uint8_t* smem = tma_smem + ((1024 - (smem_u32(tma_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::kBar);
+  uint64_t* empty = full + P::kStages;
+  uint64_t* qbar = empty + P::kStages;
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row (and B column)
-  const int t = lane & 3;   // fragment column pair
-  const int q0 = blockIdx.x * kBQ;
-  const int bh = blockIdx.y;
+  // This block's work, from the launch plan: (b*h, q tile, first K/V tile,
+  // end K/V tile).
+  const int4 work = __ldg(schedule + blockIdx.x);
+  const int bh = work.x;
+  const int q0 = work.y * kTileQ;
   const int b = bh / heads;
-  const int h = bh - b * heads;
-  const int kvh = h / (heads / kv_heads);
-  const size_t kv_off = (size_t)(b * kv_heads + kvh) * seq_k * D;
-  const __nv_bfloat16* kp = k + kv_off;
-  const __nv_bfloat16* vp = v + kv_off;
+  const int bkv = b * kv_heads + (bh - b * heads) / (heads / kv_heads);
 
-  load_tile<D>(qs, q + (size_t)bh * seq_q * D, q0, seq_q);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(qbar, 1);
+    fence_barrier_init();
+  }
   __syncthreads();
-  // This warp's 16 query rows as A fragments, one set per k-step.
-  const int r0 = warp * 16 + g;
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const __nv_bfloat16* p = qs + r0 * S + kk * 16 + 2 * t;
-    qa[kk][0] = ld32(p);
-    qa[kk][1] = ld32(p + 8 * S);
-    qa[kk][2] = ld32(p + 8);
-    qa[kk][3] = ld32(p + 8 * S + 8);
-  }
 
-  // Each lane holds two rows of the warp's 16: g ("lo") and g + 8 ("hi").
-  const int row_lo = q0 + r0;
-  const int row_hi = row_lo + 8;
-  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
-  float oacc[DT][4];
+  const int wg = warpgroup();
+  if (wg == kConsumers) {
+    // Producer warpgroup: one thread keeps the ring of K/V stages full.
+    regs_shrink<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      prefetch_map(&tq);
+      prefetch_map(&tk);
+      prefetch_map(&tv);
+      mbar_expect_tx(qbar, P::kQBytes);
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
+      for (int c = 0; c < D / 64; ++c)
+        tma_load(smem + P::kQ + c * kTileQ * 128, &tq, qbar, c * 64, q0, bh);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = work.z; kt < work.w; ++kt) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], 2 * P::kKVBytes);
+        uint8_t* ks = smem + P::kK + stage * P::kKVBytes;
+        uint8_t* vs = smem + P::kV + stage * P::kKVBytes;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) oacc[dt][j] = 0.f;
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(ks + c * kTileK * 128, &tk, &full[stage], c * 64,
+                   kt * kTileK, bkv);
+          tma_load(vs + c * kTileK * 128, &tv, &full[stage], c * 64,
+                   kt * kTileK, bkv);
+        }
+        if (++stage == P::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: q rows q0 + 64 wg .. + 63. Each thread holds
+    // two rows (lo, hi = lo + 8) of the wgmma accumulator layout.
+    regs_grow<kConsumerRegs>();
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int row_lo = q0 + wg * 64 + (t / 32) * 16 + lane / 4;
+    const int row_hi = row_lo + 8;
+    const int cp = 2 * (lane % 4);
+    const float sl2 = scale * kLog2e;
+    float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const uint8_t* qs = smem + P::kQ + wg * 64 * 128;
 
-  const int k_end = CAUSAL ? min(seq_k, q0 + kBQ) : seq_k;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(ks, kp, k0, seq_k);
-    load_tile<D>(vs, vp, k0, seq_k);
-    __syncthreads();
+    mbar_wait(qbar, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = work.z; kt < work.w; ++kt) {
+      const int k0 = kt * kTileK;
+      const uint8_t* ks = smem + P::kK + stage * P::kKVBytes;
+      const uint8_t* vs = smem + P::kV + stage * P::kKVBytes;
+      mbar_wait(&full[stage], phase);
 
-    // S = Q K^T: B fragment (k = d, n = key) is K row-major, read as pairs.
-    float s[NT][4];
+      // S = Q K^T, both K-major in shared memory.
+      float s[kTileK / 2];
+      wg_fence();
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kTileK, 0>(
+            s,
+            desc_sw128(qs + (kk / 4) * kTileQ * 128 + (kk % 4) * 32, 16, 1024),
+            desc_sw128(ks + (kk / 4) * kTileK * 128 + (kk % 4) * 32, 16, 1024),
+            kk);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(s);
+
+      // Mask only the tile on the diagonal and the ragged last tile.
+      if ((CAUSAL && k0 + kTileK - 1 > q0) || k0 + kTileK > seq_k) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const __nv_bfloat16* p = ks + (nt * 8 + g) * S + kk * 16 + 2 * t;
-        mma_bf16(s[nt], qa[kk], ld32(p), ld32(p + 8));
+        for (int j = 0; j < kTileK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + 8 * j + cp + e;
+            if (key >= seq_k || (CAUSAL && key > row_lo))
+              s[4 * j + e] = -INFINITY;
+            if (key >= seq_k || (CAUSAL && key > row_hi))
+              s[4 * j + 2 + e] = -INFINITY;
+          }
+      }
+
+      // Online softmax in base 2: p = 2^(s * scale * log2(e) - m').
+      float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+      for (int j = 0; j < kTileK / 8; ++j) {
+        mx_lo = fmaxf(mx_lo, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      // A row that has seen no key yet keeps -inf; offset it by 0 so its
+      // probabilities come out 0, not NaN.
+      const float ms_lo = mx_lo == -INFINITY ? 0.f : mx_lo * sl2;
+      const float ms_hi = mx_hi == -INFINITY ? 0.f : mx_hi * sl2;
+      const float a_lo = exp2_approx(m_lo * sl2 - ms_lo);
+      const float a_hi = exp2_approx(m_hi * sl2 - ms_hi);
+      m_lo = mx_lo;
+      m_hi = mx_hi;
+      l_lo *= a_lo;  // this thread's share of the row sum
+      l_hi *= a_hi;
+#pragma unroll
+      for (int j = 0; j < kTileK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[4 * j + e] = exp2_approx(fmaf(s[4 * j + e], sl2, -ms_lo));
+          s[4 * j + 2 + e] = exp2_approx(fmaf(s[4 * j + 2 + e], sl2, -ms_hi));
+          l_lo += s[4 * j + e];
+          l_hi += s[4 * j + 2 + e];
+        }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= a_lo;
+        acc[4 * j + 1] *= a_lo;
+        acc[4 * j + 2] *= a_hi;
+        acc[4 * j + 3] *= a_hi;
+      }
+
+      // O += P V: P from registers (bf16), V MN-major from shared memory.
+      uint32_t p[kTileK / 16][4];
+      acc_to_a<kTileK>(p, s);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTileK / 16; ++kk)
+        wgmma_rs<D, 1>(acc, p[kk],
+                       desc_sw128(vs + kk * 2048, kTileK * 128, 1024), 1);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(acc);
+      fence_regs(p);
+      if (t == 0) mbar_arrive(&empty[stage]);
+      if (++stage == P::kStages) {
+        stage = 0;
+        phase ^= 1;
       }
     }
 
-    // Scale, mask, and the online softmax on the accumulators.
-    float mx_lo = kNegInf, mx_hi = kNegInf;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kc = k0 + nt * 8 + 2 * t + j;
-        const bool in = kc < seq_k;
-        s[nt][j] = (in && (!CAUSAL || kc <= row_lo)) ? s[nt][j] * scale
-                                                     : kNegInf;
-        s[nt][2 + j] = (in && (!CAUSAL || kc <= row_hi))
-                           ? s[nt][2 + j] * scale
-                           : kNegInf;
-        mx_lo = fmaxf(mx_lo, s[nt][j]);
-        mx_hi = fmaxf(mx_hi, s[nt][2 + j]);
-      }
-    }
+    // O = acc / max(l, 1e-30); LSE = m * scale + log(max(l, 1e-30)).
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
     }
-    const float mn_lo = fmaxf(m_lo, mx_lo);
-    const float mn_hi = fmaxf(m_hi, mx_hi);
-    const float a_lo = expf(m_lo - mn_lo);
-    const float a_hi = expf(m_hi - mn_hi);
-    float sum_lo = 0.f, sum_hi = 0.f;
+    const float d_lo = fmaxf(l_lo, 1e-30f);
+    const float d_hi = fmaxf(l_hi, 1e-30f);
+    const float inv_lo = 1.f / d_lo;
+    const float inv_hi = 1.f / d_hi;
+    bf16* o_lo = o + ((size_t)bh * seq_q + row_lo) * D;
+    bf16* o_hi = o_lo + 8 * D;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[nt][j] = expf(s[nt][j] - mn_lo);
-        s[nt][2 + j] = expf(s[nt][2 + j] - mn_hi);
-        sum_lo += s[nt][j];
-        sum_hi += s[nt][2 + j];
-      }
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + cp;
+      if (row_lo < seq_q)
+        *reinterpret_cast<__nv_bfloat162*>(o_lo + col) =
+            __floats2bfloat162_rn(acc[4 * j] * inv_lo, acc[4 * j + 1] * inv_lo);
+      if (row_hi < seq_q)
+        *reinterpret_cast<__nv_bfloat162*>(o_hi + col) = __floats2bfloat162_rn(
+            acc[4 * j + 2] * inv_hi, acc[4 * j + 3] * inv_hi);
     }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, off);
-      sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, off);
+    if (lane % 4 == 0) {
+      if (row_lo < seq_q)
+        lse[(size_t)bh * seq_q + row_lo] = m_lo * scale + logf(d_lo);
+      if (row_hi < seq_q)
+        lse[(size_t)bh * seq_q + row_hi] = m_hi * scale + logf(d_hi);
     }
-    l_lo = l_lo * a_lo + sum_lo;
-    l_hi = l_hi * a_hi + sum_hi;
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      oacc[dt][0] *= a_lo;
-      oacc[dt][1] *= a_lo;
-      oacc[dt][2] *= a_hi;
-      oacc[dt][3] *= a_hi;
-    }
-
-    // O += P V: the score accumulators of key tiles 2kk, 2kk+1 are
-    // exactly the A fragment of k-step kk; the B fragment (k = key,
-    // n = d) pairs two V rows of one column.
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int key = kk * 16 + 2 * t;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const int col = dt * 8 + g;
-        const uint32_t b0 = (uint32_t)vh[key * S + col] |
-                            ((uint32_t)vh[(key + 1) * S + col] << 16);
-        const uint32_t b1 = (uint32_t)vh[(key + 8) * S + col] |
-                            ((uint32_t)vh[(key + 9) * S + col] << 16);
-        mma_bf16(oacc[dt], pa, b0, b1);
-      }
-    }
-  }
-
-  // O = acc / max(l, 1e-30); LSE = m + log(max(l, 1e-30)).
-  const float d_lo = fmaxf(l_lo, 1e-30f);
-  const float d_hi = fmaxf(l_hi, 1e-30f);
-  __nv_bfloat16* o_lo = o + ((size_t)bh * seq_q + row_lo) * D;
-  __nv_bfloat16* o_hi = o_lo + 8 * D;
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (row_lo < seq_q)
-      *reinterpret_cast<__nv_bfloat162*>(o_lo + col) =
-          __floats2bfloat162_rn(oacc[dt][0] / d_lo, oacc[dt][1] / d_lo);
-    if (row_hi < seq_q)
-      *reinterpret_cast<__nv_bfloat162*>(o_hi + col) =
-          __floats2bfloat162_rn(oacc[dt][2] / d_hi, oacc[dt][3] / d_hi);
-  }
-  if (t == 0) {
-    if (row_lo < seq_q) lse[(size_t)bh * seq_q + row_lo] = m_lo + logf(d_lo);
-    if (row_hi < seq_q) lse[(size_t)bh * seq_q + row_hi] = m_hi + logf(d_hi);
   }
 }
 
@@ -475,65 +498,99 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, typename Kernel>
-int launch(Kernel kernel, size_t smem, int threads, const void* q,
-           const void* k, const void* v, void* o, float* lse, int batch,
-           int heads, int kv_heads, int seq_q, int seq_k, float scale,
-           cudaStream_t stream) {
+template <int D, bool CAUSAL>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int batch, int heads, int kv_heads, int seq_q,
+               int seq_k, float scale, cudaStream_t stream) {
+  auto kernel = flash_fwd_f32_kernel<D, CAUSAL>;
+  const size_t smem = fma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((seq_q + kBQ - 1) / kBQ, batch * heads);
-  kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, heads, kv_heads,
-      seq_q, seq_k, scale);
+  kernel<<<grid, kFmaThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, heads,
+      kv_heads, seq_q, seq_k, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool CAUSAL>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int batch, int heads, int kv_heads, int seq_q,
+                int seq_k, const int* plan, const int* schedule, float scale,
+                cudaStream_t stream) {
+  using P = FwdPlan<D>;
+  if (plan[0] != kTileQ || plan[1] != kTileK || plan[2] != P::kStages ||
+      plan[3] != P::kSmem || plan[4] <= 0 || schedule == nullptr)
+    return kErrPlan;
+  CUtensorMap tq, tk, tv;
+  int err;
+  if ((err = make_map_bf16(&tq, q, D, seq_q, batch * heads, kTileQ)) ||
+      (err = make_map_bf16(&tk, k, D, seq_k, batch * kv_heads, kTileK)) ||
+      (err = make_map_bf16(&tv, v, D, seq_k, batch * kv_heads, kTileK)))
+    return err;
+  auto kernel = flash_fwd_bf16_kernel<D, CAUSAL>;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (rc != cudaSuccess) return (int)rc;
+  kernel<<<plan[4], kThreads, P::kSmem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse,
+      reinterpret_cast<const int4*>(schedule), heads, kv_heads, seq_q, seq_k,
+      scale);
   return (int)cudaGetLastError();
 }
 
 template <int D, bool CAUSAL>
 int launch_typed(int dtype, const void* q, const void* k, const void* v,
                  void* o, float* lse, int batch, int heads, int kv_heads,
-                 int seq_q, int seq_k, float scale, cudaStream_t s) {
+                 int seq_q, int seq_k, const int* plan, const int* schedule,
+                 float scale, cudaStream_t s) {
   if (dtype == 0)
-    return launch<float>(flash_fwd_f32_kernel<D, CAUSAL>, fma_smem_bytes<D>(),
-                         kFmaThreads, q, k, v, o, lse, batch, heads, kv_heads,
-                         seq_q, seq_k, scale, s);
+    return launch_f32<D, CAUSAL>(q, k, v, o, lse, batch, heads, kv_heads,
+                                 seq_q, seq_k, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(flash_fwd_bf16_kernel<D, CAUSAL>,
-                                 mma_smem_bytes<D>(), kMmaThreads, q, k, v, o,
-                                 lse, batch, heads, kv_heads, seq_q, seq_k,
-                                 scale, s);
-  return -1;
+    return launch_bf16<D, CAUSAL>(q, k, v, o, lse, batch, heads, kv_heads,
+                                  seq_q, seq_k, plan, schedule, scale, s);
+  return kErrUnsupported;
 }
 
 template <int D>
 int launch_dim(int dtype, int causal, const void* q, const void* k,
                const void* v, void* o, float* lse, int batch, int heads,
-               int kv_heads, int seq_q, int seq_k, float scale,
-               cudaStream_t s) {
+               int kv_heads, int seq_q, int seq_k, const int* plan,
+               const int* schedule, float scale, cudaStream_t s) {
   return causal ? launch_typed<D, true>(dtype, q, k, v, o, lse, batch, heads,
-                                        kv_heads, seq_q, seq_k, scale, s)
+                                        kv_heads, seq_q, seq_k, plan,
+                                        schedule, scale, s)
                 : launch_typed<D, false>(dtype, q, k, v, o, lse, batch, heads,
-                                         kv_heads, seq_q, seq_k, scale, s);
+                                         kv_heads, seq_q, seq_k, plan,
+                                         schedule, scale, s);
 }
 
 }  // namespace
 
 // C entry point for ctypes. dtype: 0 = float32, 1 = bfloat16. Inputs are
 // contiguous [batch, heads, seq_q, d] (q, o) and [batch, kv_heads, seq_k, d]
-// (k, v); lse is [batch, heads, seq_q] fp32. Returns 0, the CUDA error of
-// the launch, or -1 for a dtype / head dim this kernel does not take.
+// (k, v); lse is [batch, heads, seq_q] fp32. The bfloat16 kernel's launch
+// plan comes from ops/attention.py: q rows per block, keys per stage,
+// stages and shared-memory bytes, which must match this build, and the
+// schedule, `blocks` int4s in device memory (b*h, q tile, first and end K/V
+// tile), one per block in launch order. float32 takes none (0s, NULL).
+// Returns 0, the CUDA error of the launch, or a negative hopper::kErr* code.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
-                         float* lse, int batch, int heads, int kv_heads,
-                         int seq_q, int seq_k, int head_dim, int dtype,
-                         int causal, float scale, void* stream) {
+                         float* lse, const int* schedule, int batch, int heads,
+                         int kv_heads, int seq_q, int seq_k, int head_dim,
+                         int dtype, int causal, int block_q, int block_k,
+                         int stages, int smem_bytes, int blocks, float scale,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int plan[5] = {block_q, block_k, stages, smem_bytes, blocks};
   if (head_dim == 64)
     return launch_dim<64>(dtype, causal, q, k, v, o, lse, batch, heads,
-                          kv_heads, seq_q, seq_k, scale, s);
+                          kv_heads, seq_q, seq_k, plan, schedule, scale, s);
   if (head_dim == 128)
     return launch_dim<128>(dtype, causal, q, k, v, o, lse, batch, heads,
-                           kv_heads, seq_q, seq_k, scale, s);
-  return -1;
+                           kv_heads, seq_q, seq_k, plan, schedule, scale, s);
+  return hopper::kErrUnsupported;
 }

@@ -5,7 +5,8 @@ into a shared library with a plain C interface, which ``ctypes`` loads.
 Nothing includes PyTorch's headers, so a build takes seconds. Builds
 happen at first use, never at import, into ``build/kernels/`` at the
 root of the checkout. The library's file name carries a digest of its
-source, so an edited source never loads a stale build.
+source and of the shared headers (``csrc/*.cuh``), so an edited source
+never loads a stale build.
 """
 
 from __future__ import annotations
@@ -45,11 +46,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to (digest of the source in the
-    file name)."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """Where ``csrc/<name>.cu`` builds to (digest of the source and the
+    shared headers in the file name)."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def compile_source(name: str) -> tuple[str, str]:

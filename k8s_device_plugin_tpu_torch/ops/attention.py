@@ -26,6 +26,14 @@ K/V may carry fewer heads than q (GQA): q head h attends kv head
 models/transformer.py. The kernels read the shared head in place and B4
 sums its gradient over the group; the plain versions expand first.
 
+The bfloat16 kernels B1 and B4 are Hopper designs (TMA loads into a ring
+of shared-memory stages, wgmma products, one producer warp and two
+consumer warpgroups); ``flash_fwd_plan`` / ``flash_bwd_dkv_plan`` pick
+their launch plan — tile sizes, stages, shared-memory bytes — and its
+schedule, which tile each block computes and over which steps it loops,
+in launch order. The C entry point refuses a plan that does not match its
+build, and each block reads its row of the schedule.
+
 The kernels take head dims 64 and 128. On the card, any other head dim
 up to 128 is zero-padded to the next of them with the softmax scale of
 the true dim, and the results are sliced back: zero lanes add nothing,
@@ -36,6 +44,8 @@ Larger head dims raise.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -200,6 +210,142 @@ def _check_kernel_inputs(name, q, k, v, *rows):
                              f"match q {tuple(q.shape)}")
 
 
+# ---------------------------------------------------------------------------
+# launch plans of the bfloat16 Hopper kernels (B1, B4)
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232_448   # bytes of shared memory one block may use (H100)
+TMA_BOX_ROW_LIMIT = 128  # bytes: the widest box row the 128-byte swizzle takes
+_WG_ROWS = 64          # rows of one consumer warpgroup (the wgmma M)
+_CONSUMERS = 2         # consumer warpgroups per block
+_THREADS = 128 * (_CONSUMERS + 1)  # + one producer warpgroup
+_BOX_ROW = 64 * 2      # a box row: 64 bf16 elements
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one launch of a bfloat16 Hopper kernel is cut.
+
+    ``groups`` are the (batch, head) pairs the kernel runs over (b·h for
+    B1, b·kv_heads for B4) and ``tiles`` the row tiles of each: q tiles of
+    ``block_rows`` rows (B1) or key tiles (B4). Each block loops over
+    ``step_rows``-row steps (B1: keys of a K/V stage; B4: q rows of a Q/dO
+    stage) through a ring of ``stages`` shared-memory stages, the steps
+    that ``schedule()`` gives it. ``boxes`` are the TMA boxes, (operand,
+    bytes per box row, box rows). ``args`` is what the C entry point takes
+    beside the schedule: the first four it checks against its build, the
+    last is the grid."""
+
+    kernel: str
+    head_dim: int
+    causal: bool
+    seq_q: int
+    seq_k: int
+    n_rep: int
+    groups: int
+    tiles: int
+    block_rows: int
+    step_rows: int
+    stages: int
+    threads: int
+    smem_bytes: int
+    boxes: tuple
+
+    @property
+    def grid(self) -> int:
+        return self.groups * self.tiles
+
+    @property
+    def args(self) -> tuple[int, int, int, int, int]:
+        return (self.block_rows, self.step_rows, self.stages,
+                self.smem_bytes, self.grid)
+
+    def schedule(self) -> torch.Tensor:
+        """[grid, 4] int32, one row per block in launch order: (group,
+        tile, first step, end step). The kernel reads its row and nothing
+        else: it computes that tile and loops over steps first .. end - 1
+        (B4: for each of the group's n_rep q heads).
+
+        B1 takes q tiles from the last down, so under a causal mask the
+        heaviest start first; a tile's K/V stages end at its last row
+        (causal) or at seq_k. B4 takes key tiles from the first up, the
+        ones that own the most q steps; its q steps start at the one
+        holding the tile's first key (causal) or at 0, and end at seq_q."""
+        i = torch.arange(self.grid)
+        group, tile = i % self.groups, i // self.groups
+        if self.kernel == "flash_fwd":
+            tile = self.tiles - 1 - tile
+            end_row = torch.full_like(tile, self.seq_k)
+            if self.causal:
+                end_row = torch.clamp(
+                    (tile + 1) * self.block_rows, max=self.seq_k)
+            end = (end_row + self.step_rows - 1) // self.step_rows
+            first = torch.zeros_like(end)
+        else:
+            end = torch.full_like(tile, -(-self.seq_q // self.step_rows))
+            first = torch.zeros_like(end)
+            if self.causal:
+                first = torch.minimum(
+                    tile * self.block_rows // self.step_rows, end)
+        return torch.stack([group, tile, first, end], 1).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=256)
+def flash_fwd_plan(batch: int, heads: int, kv_heads: int, seq_q: int,
+                   seq_k: int, head_dim: int, causal: bool) -> LaunchPlan:
+    """B1 (bf16): 128 q rows a block (two warpgroups of 64), K/V stages of
+    128 keys, as many stages as fit beside Q (4 at d = 64, 3 at d = 128);
+    the shared-memory layout of csrc/flash_fwd.cu's FwdPlan."""
+    block, step = _WG_ROWS * _CONSUMERS, 128
+    stages = 4 if head_dim == 64 else 3
+    q_bytes = block * head_dim * 2
+    kv_bytes = step * head_dim * 2
+    smem = 1024 + q_bytes + stages * 2 * kv_bytes + (2 * stages + 1) * 8
+    boxes = (("q", _BOX_ROW, block), ("k", _BOX_ROW, step),
+             ("v", _BOX_ROW, step))
+    return LaunchPlan("flash_fwd", head_dim, bool(causal), seq_q, seq_k,
+                      heads // kv_heads, batch * heads, -(-seq_q // block),
+                      block, step, stages, _THREADS, smem, boxes)
+
+
+@functools.lru_cache(maxsize=256)
+def flash_bwd_dkv_plan(batch: int, heads: int, kv_heads: int, seq_q: int,
+                       seq_k: int, head_dim: int, causal: bool) -> LaunchPlan:
+    """B4 (bf16): 128 keys a block (two warpgroups of 64), q steps of 64
+    rows, Q/dO stages as fit beside K and V (4 at d = 64, 3 at d = 128);
+    the shared-memory layout of csrc/flash_bwd.cu's dkv::Plan. The q step
+    is what keeps a consumer's dK and dV accumulators (2·d/2 fp32) and its
+    S^T and dP^T tiles in registers without spills."""
+    block, step = _WG_ROWS * _CONSUMERS, 64
+    stages = 4 if head_dim == 64 else 3
+    kv_bytes = block * head_dim * 2
+    step_bytes = step * head_dim * 2
+    smem = (1024 + 2 * kv_bytes + stages * 2 * step_bytes
+            + stages * 2 * step * 4 + (2 * stages + 1) * 8)
+    boxes = (("q", _BOX_ROW, step), ("do", _BOX_ROW, step),
+             ("k", _BOX_ROW, block), ("v", _BOX_ROW, block))
+    return LaunchPlan("flash_bwd_dkv", head_dim, bool(causal), seq_q, seq_k,
+                      heads // kv_heads, batch * kv_heads, -(-seq_k // block),
+                      block, step, stages, _THREADS, smem, boxes)
+
+
+@functools.lru_cache(maxsize=256)
+def _schedule_on(plan: LaunchPlan, device: torch.device) -> torch.Tensor:
+    """The plan's schedule in ``device`` memory, copied once per plan."""
+    return plan.schedule().to(device)
+
+
+def _launch_plan(plan_fn, q, k, causal):
+    """(schedule pointer, plan ints) for a kernel's C entry point: the
+    bfloat16 kernel's plan from ``plan_fn`` with its schedule on q's
+    device; float32 takes none."""
+    if q.dtype != torch.bfloat16:
+        return None, (0, 0, 0, 0, 0)
+    b, h, s, d = q.shape
+    plan = plan_fn(b, h, k.shape[1], s, k.shape[2], d, bool(causal))
+    return _schedule_on(plan, q.device).data_ptr(), plan.args
+
+
 def _kernel_fn(lib: str, symbol: str, n_ptr: int, n_int: int):
     """A built kernel's C entry point, typed for ctypes once (ctypes
     caches the function object on the library): ``n_ptr`` pointers,
@@ -215,29 +361,40 @@ def _kernel_fn(lib: str, symbol: str, n_ptr: int, n_int: int):
     return fn
 
 
+_KERNEL_ERRORS = {
+    -1: "dtype or head dim not built",
+    -2: "launch plan does not match the build",
+    -3: "cuTensorMapEncodeTiled not found in libcuda",
+    -4: "libcuda refused a TMA tensor map",
+}
+
+
 def _run(fn, name, q, *args):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        why = _KERNEL_ERRORS.get(rc, f"CUDA error {rc}")
+        raise RuntimeError(f"{name} launch failed: {why} ({rc})")
 
 
 def flash_forward_cuda(q, k, v, causal: bool, scale: float | None = None):
     """Launch kernel B1 (flash forward); (out, lse).
 
-    bfloat16 runs on the tensor cores (mma.sync), float32 on FP32 FMA
-    (csrc/flash_fwd.cu says why). ``scale`` defaults to d^-0.5."""
+    bfloat16 runs the Hopper design (TMA + wgmma) with the launch plan of
+    ``flash_fwd_plan``, float32 on FP32 FMA (csrc/flash_fwd.cu says why).
+    ``scale`` defaults to d^-0.5."""
     _check_kernel_inputs("flash_fwd", q, k, v)
     b, h, s, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    fn = _kernel_fn("flash_fwd", "flash_fwd", 5, 8)
+    schedule, plan = _launch_plan(flash_fwd_plan, q, k, causal)
+    fn = _kernel_fn("flash_fwd", "flash_fwd", 6, 13)
     _run(fn, "flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-         out.data_ptr(), lse.data_ptr(), b, h, k.shape[1], s, k.shape[2], d,
-         _KERNEL_DTYPES[q.dtype], int(bool(causal)),
+         out.data_ptr(), lse.data_ptr(), schedule, b, h, k.shape[1], s,
+         k.shape[2], d, _KERNEL_DTYPES[q.dtype], int(bool(causal)), *plan,
          d ** -0.5 if scale is None else scale)
     FLASH_FWD.launches += 1
     return out, lse
@@ -269,15 +426,19 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal: bool,
 def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal: bool,
                        scale: float | None = None):
     """Launch kernel B4: (dK, dV), unexpanded ([b, kv_heads, s, d]),
-    summed over each kv head's group of q heads inside the kernel."""
+    summed over each kv head's group of q heads inside the kernel.
+    bfloat16 runs the Hopper design with the plan of
+    ``flash_bwd_dkv_plan``."""
     _check_kernel_inputs("flash_bwd_dkv", q, k, v, ("g", g))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0 or q.numel() == 0:
         return dk.zero_(), dv.zero_()
-    fn = _kernel_fn("flash_bwd", "flash_bwd_dkv", 8, 8)
+    schedule, plan = _launch_plan(flash_bwd_dkv_plan, q, k, causal)
+    *ints, scale = _bwd_args(q, k, causal, scale)
+    fn = _kernel_fn("flash_bwd", "flash_bwd_dkv", 9, 13)
     _run(fn, "flash_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
          g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-         dv.data_ptr(), *_bwd_args(q, k, causal, scale))
+         dv.data_ptr(), schedule, *ints, *plan, scale)
     FLASH_BWD_DKV.launches += 1
     return dk, dv
 

@@ -72,6 +72,107 @@ def test_flash_kernel_matches_plain(cuda, shape, kv_heads, dtype, tol,
     assert (got_l - want_l).abs().max().item() <= tol
 
 
+# Tile edges of the Hopper bf16 kernels (128-row q tiles and key stages in
+# B1, 128-key blocks and 64-row q steps in B4): one row, one short of and
+# one past a tile, ragged, and the flagship length.
+EDGE_SEQS = [1, 127, 129, 200, 2048]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("seq", EDGE_SEQS)
+def test_hopper_forward_tile_edges(cuda, seq, dim, causal):
+    """B1's bf16 kernel (TMA + wgmma) against the plain version at the
+    tile edges, GQA with 2 q heads per kv head."""
+    q, k, v = _qkv((1 if seq > 1000 else 2, 4, seq, dim), 2, torch.bfloat16,
+                   seed=seq + dim)
+    out, lse = attention.flash_forward_cuda(q, k, v, causal)
+    torch.cuda.synchronize()
+    want_o, want_l = attention.reference_attention_with_lse(q, k, v, causal)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert (out.float() - want_o.float()).abs().max().item() <= 3e-2
+    assert (lse - want_l).abs().max().item() <= 3e-2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("seq", EDGE_SEQS)
+def test_hopper_backward_tile_edges(cuda, seq, dim, causal):
+    """B4's bf16 kernel (with B3) against the plain backward at the tile
+    edges, GQA with 4 q heads per kv head summed inside the block."""
+    shape = (1, 8, seq, dim)
+    q, k, v = _qkv(shape, 2, torch.bfloat16, seed=seq + dim + 1)
+    rng = np.random.default_rng(seq)
+    g = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    g = g.cuda().to(torch.bfloat16)
+    g_lse = torch.from_numpy(
+        rng.standard_normal(shape[:3], dtype=np.float32)).cuda()
+    out, lse = attention.flash_forward_cuda(q, k, v, causal)
+    got = attention.flash_backward_cuda(q, k, v, out, lse, g, g_lse,
+                                        causal=causal)
+    torch.cuda.synchronize()
+    want = attention.reference_attention_backward(q, k, v, out, lse, g,
+                                                  g_lse, causal=causal)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert _rel_err(a, b) <= 5e-2
+
+
+def test_hopper_dkv_is_deterministic(cuda):
+    """B4 sums the GQA group in registers, without atomics: two launches on
+    the same inputs give bitwise-equal dK and dV."""
+    shape = (2, 8, 640, 128)
+    q, k, v = _qkv(shape, 2, torch.bfloat16, seed=21)
+    g = _qkv(shape, 8, torch.bfloat16, seed=22)[0]
+    out, lse = attention.flash_forward_cuda(q, k, v, True)
+    delta = attention.attention_delta(out, g)
+    first = attention.flash_bwd_dkv_cuda(q, k, v, g, lse, delta, True)
+    second = attention.flash_bwd_dkv_cuda(q, k, v, g, lse, delta, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("kernel", ["b1", "b4"])
+def test_hopper_kernels_follow_the_plan_schedule(cuda, monkeypatch, kernel):
+    """Each block computes what its row of the launch plan's schedule
+    says: the rows in reverse launch order give bitwise-equal results,
+    and emptying one row's step range leaves that tile zero."""
+    shape = (2, 8, 300, 128)
+    q, k, v = _qkv(shape, 2, torch.bfloat16, seed=31)
+    g = _qkv(shape, 8, torch.bfloat16, seed=32)[0]
+    out, lse = attention.flash_forward_cuda(q, k, v, True)
+    delta = attention.attention_delta(out, g)
+
+    def run():
+        if kernel == "b1":
+            res = attention.flash_forward_cuda(q, k, v, True)[0]
+        else:
+            res = attention.flash_bwd_dkv_cuda(q, k, v, g, lse, delta, True)[0]
+        return res.flatten(0, 1)
+
+    def emptied(plan, device):
+        rows = plan.schedule()
+        rows[0, 3] = rows[0, 2]
+        return rows.to(device)
+
+    want = run()
+    monkeypatch.setattr(attention, "_schedule_on", lambda plan, device:
+                        plan.schedule().flip(0).contiguous().to(device))
+    flipped = run()
+    monkeypatch.setattr(attention, "_schedule_on", emptied)
+    cut = run()
+    torch.cuda.synchronize()
+    assert torch.equal(flipped, want)
+    plan = (attention.flash_fwd_plan(2, 8, 2, 300, 300, 128, True)
+            if kernel == "b1" else
+            attention.flash_bwd_dkv_plan(2, 8, 2, 300, 300, 128, True))
+    group, tile = plan.schedule()[0, :2].tolist()
+    rows = slice(tile * plan.block_rows, (tile + 1) * plan.block_rows)
+    assert (cut[group, rows] == 0).all() and want[group, rows].abs().max() > 0
+    cut[group, rows] = want[group, rows]
+    assert torch.equal(cut, want)
+
+
 def _rel_err(got, want):
     return ((got.float() - want.float()).abs().max()
             / want.float().abs().max().clamp_min(1e-30)).item()
