@@ -30,8 +30,9 @@ exits non-zero without a result:
   inputs, random output and lse cotangents, at the training shapes and
   edge cases of BWD_CASES (tolerances there); CUDA-event times of each
   kernel, the plain backward and SDPA's backward, beside the bounds, with
-  TFLOP/s and bound shares; B4 launched twice on the same inputs must
-  give bitwise-equal dK/dV (it sums GQA groups without atomics).
+  TFLOP/s and bound shares; B3 and B4 each launched twice on the same
+  inputs must give bitwise-equal dQ and dK/dV (one block owns each output
+  row, and B4 sums GQA groups without atomics).
 - ``train``: the trainer (models/train.main) at the ``LMConfig()``
   default, batch 8: 6 steps with checkpoints, then a resume to step 8;
   ``benchmark_train()`` at the flagship config (3 warm-up + 10 steps):
@@ -402,8 +403,17 @@ def phase_kernel_bwd() -> tuple[dict, list]:
                       attention_ops(b, h, s, d, causal, products),
                       prefix=f"{kernel}_")
             if dt == "bfloat16":
-                # B4 sums each GQA group in registers: two launches on the
-                # same inputs must agree bit for bit.
+                # One block owns each dQ row (B3), and B4 sums each GQA
+                # group in registers: two launches on the same inputs must
+                # agree bit for bit.
+                first = attention.flash_bwd_dq_cuda(q, k, v, g, lse, delta,
+                                                    causal)
+                second = attention.flash_bwd_dq_cuda(q, k, v, g, lse, delta,
+                                                     causal)
+                if not torch.equal(first, second):
+                    raise AssertionError(f"kernel_bwd {name}: B3 is not "
+                                         f"deterministic")
+                row["dq_deterministic"] = True
                 first = attention.flash_bwd_dkv_cuda(q, k, v, g, lse, delta,
                                                      causal)
                 second = attention.flash_bwd_dkv_cuda(q, k, v, g, lse,

@@ -17,7 +17,7 @@
 // - The TPU walks the reduction axis of each kernel as a sequential grid
 //   dimension and carries the accumulator in VMEM scratch. Blocks here run
 //   in no order, so each block owns its output tile and loops itself:
-//   B3 one block per (batch*head, 64 q rows), looping over K/V tiles up to
+//   B3 one block per (batch*head, q tile), looping over K/V stages up to
 //   the diagonal when causal; B4 one block per (batch, KV HEAD, key tile),
 //   looping over that kv head's n_rep q heads and, when causal, over the
 //   q steps from the diagonal on (the TPU's index-map clamps at :396-405
@@ -25,7 +25,8 @@
 // - GQA: B4 sums the n_rep q heads that share a kv head inside the block,
 //   in fp32 registers, so dK/dV come out unexpanded ([b, kv_heads, s, d]),
 //   with no atomics and no expanded buffer: the result is deterministic.
-//   B3 reads kv head h / n_rep in place, as the forward does.
+//   B3 reads kv head h / n_rep in place, as the forward does, and one
+//   block owns each dQ row: it is deterministic too.
 // - LSE and delta are one fp32 per row ([b, h, s]); the TPU's 128-lane
 //   broadcast of them (:366-367) was a Mosaic constraint.
 // - Any sequence length: tiles straddling the ragged edge or the diagonal
@@ -39,31 +40,39 @@
 // 0.139 ms at 989 TFLOP/s, against ~0.05 ms and ~0.06 ms to move their
 // bytes at 3.35 TB/s. Both are compute-bound at the roofline.
 //
-// Implementations, by kernel and input type:
-// - B4, bfloat16, built for Hopper's tensor cores. A block owns 128 keys of
-//   one kv head and runs three warpgroups. K and V are loaded once by TMA;
-//   one producer warp then streams the Q and dO tiles of each q step into a
-//   ring of shared-memory stages (TMA, mbarrier completion) with the step's
-//   LSE (times log2(e)) and delta beside them; two consumer warpgroups of
-//   64 keys each compute, so copies overlap products, and setmaxnreg moves
-//   registers to them. The score tile is kept transposed, keys as the wgmma
+// Implementations, by kernel and input type. The two bfloat16 kernels are
+// built for Hopper's tensor cores on the pieces of hopper.cuh: a block of
+// three warpgroups, one producer that issues TMA loads into a ring of
+// shared-memory stages (completion on mbarriers) and two consumers of 64
+// rows each that compute, so copies overlap products; setmaxnreg moves
+// registers from the producer to the consumers. Which tile a block owns
+// and which steps it loops over come from the launch plan's schedule
+// (ops/attention.py), one int4 per block.
+// - B3, bfloat16: the forward's pipeline (flash_fwd.cu) with one more
+//   product. A block owns 128 q rows: Q and dO are loaded once by TMA,
+//   then K and V stream through the ring in stages of keys up to the
+//   diagonal. Per stage each consumer computes S = Q K^T and dP = dO V^T
+//   with every operand K-major in shared memory, P = 2^(S * scale *
+//   log2(e) - LSE * log2(e)) from the two rows' LSE and delta it holds in
+//   registers, dS = P (dP - delta) rounded to bf16 and repacked in
+//   registers as the A operand of dQ += dS K, whose B operand is K read
+//   MN-major from the same swizzled stage. Only the diagonal stage and
+//   the ragged last stage are masked; a stage wholly past a consumer's
+//   rows is skipped. The schedule (`flash_bwd_dq_plan`) launches the
+//   heaviest causal q tiles first, so the short ones fill the tail.
+// - B4, bfloat16. A block owns 128 keys of one kv head: K and V are loaded
+//   once by TMA; the producer warp then streams the Q and dO tiles of each
+//   q step into the ring with the step's LSE (times log2(e)) and delta
+//   beside them. The score tile is kept transposed, keys as the wgmma
 //   M dimension: S^T = K Q^T and dP^T = V dO^T read every operand K-major
 //   from shared memory; P^T = 2^(S^T * scale * log2(e) - LSE * log2(e)) and
 //   dS^T = P^T (dP^T - delta) are rounded to bf16 and repacked in registers
 //   as the A operands of dV += P^T dO and dK += dS^T Q, whose B operands
 //   (dO, Q) are read MN-major from the same swizzled tiles. Only steps on
 //   the diagonal are masked; a q row past the end has LSE = +inf, so its
-//   probabilities are 0 without a mask. Which key tile a block owns and
-//   which q steps it loops over come from the launch plan's schedule
-//   (ops/attention.py `flash_bwd_dkv_plan`), one int4 per block: it
-//   launches the lowest key tiles first, which own the most q steps under
-//   a causal mask.
-// - B3, bfloat16: tensor cores through mma.sync m16n8k16 with fp32
-//   accumulation. Four warps own 16 q rows each. S and dP land in fp32
-//   accumulators; dS is rounded to bf16 and repacked in registers as the A
-//   operand of dS K. Operand tiles are staged in shared memory with plain
-//   16-byte loads; K's B fragments read along k are gathered from 16-bit
-//   loads.
+//   probabilities are 0 without a mask. The schedule
+//   (`flash_bwd_dkv_plan`) launches the lowest key tiles first, which own
+//   the most q steps under a causal mask.
 // - float32: FP32 FMA on the CUDA cores (tensor cores would be TF32), 256
 //   threads each owning a 4x4 micro-tile of the 64x64 score tile, dS (and
 //   P) passed through shared memory to the accumulating products.
@@ -75,219 +84,277 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// Rows a block owns: q rows (B3), keys (B4). Masked probabilities are set
-// to 0 directly, which is what exp(-1e30 - LSE) gives the reference.
+// Rows a float32 block owns: q rows (B3), keys (B4). Masked probabilities
+// are set to 0 directly, which is what exp(-1e30 - LSE) gives the
+// reference.
 constexpr int kBlk = 64;
 
 // ---------------------------------------------------------------------------
-// bfloat16: mma.sync m16n8k16 (fp32 accumulate)
+// B3, bfloat16: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
+// Both bfloat16 kernels: two consumer warpgroups of 64 rows and one
+// producer warpgroup.
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+namespace dq {
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int kTileQ = 64 * kConsumers;  // q rows per block
 
-// A fragment (16 x 16, m x k) of a tile stored row-major [m][k] at p.
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* p, int S,
-                                       int g, int t) {
-  const bf16* r = p + g * S + 2 * t;
-  a[0] = ld32(r);
-  a[1] = ld32(r + 8 * S);
-  a[2] = ld32(r + 8);
-  a[3] = ld32(r + 8 * S + 8);
-}
+// Shared-memory plan for K/V stages of BK keys in a ring of STAGES (byte
+// offsets; operand tiles 1024-byte aligned): Q and dO of the block, then
+// the K and V stages.
+template <int D, int BK, int STAGES>
+struct Plan {
+  static constexpr int kStepK = BK;
+  static constexpr int kStages = STAGES;
+  static constexpr int kQBytes = kTileQ * D * 2;  // Q (or dO) of the block
+  static constexpr int kKVBytes = BK * D * 2;     // one K (or V) stage
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + kQBytes;
+  static constexpr int kK = kDO + kQBytes;
+  static constexpr int kV = kK + STAGES * kKVBytes;
+  static constexpr int kBar = kV + STAGES * kKVBytes;
+  // + barriers, + slack to align the dynamic window to 1024 bytes
+  static constexpr int kSmem = 1024 + kBar + (2 * STAGES + 1) * 8;
+};
 
-// B fragment (16 x 8, k x n) of a tile stored [n][k] at p: pairs along k.
-__device__ __forceinline__ void frag_b_nk(uint32_t& b0, uint32_t& b1,
-                                          const bf16* p, int S, int g, int t) {
-  const bf16* r = p + g * S + 2 * t;
-  b0 = ld32(r);
-  b1 = ld32(r + 8);
-}
-
-// B fragment (16 x 8, k x n) of a tile stored [k][n] at p: two 16-bit
-// loads per register.
-__device__ __forceinline__ void frag_b_kn(uint32_t& b0, uint32_t& b1,
-                                          const bf16* p, int S, int g, int t) {
-  const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
-  const int r = 2 * t;
-  b0 = (uint32_t)h[r * S + g] | ((uint32_t)h[(r + 1) * S + g] << 16);
-  b1 = (uint32_t)h[(r + 8) * S + g] | ((uint32_t)h[(r + 9) * S + g] << 16);
-}
-
-// The fp32 accumulators of n-tiles 2kk and 2kk+1 (a 16 x 16 block of C)
-// as the bf16 A fragment of k-step kk.
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// Rows [row0, row0 + ROWS) of a [rows, D] bf16 matrix into a [ROWS][D + 8]
-// shared tile, 16 bytes per load, zeros past `rows`.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
-                                          int rows) {
-  constexpr int S = D + 8;
-  for (int idx = threadIdx.x; idx < ROWS * (D / 8); idx += kMmaThreads) {
-    const int r = idx / (D / 8);
-    const int c = (idx % (D / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows)
-      x = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * S + c) = x;
-  }
-}
-
+// The build's plan at each head dim; `flash_bwd_dq_plan` in
+// ops/attention.py states the same numbers and the entry point refuses a
+// plan that disagrees. Keys per stage: at d = 128 a 64-key stage keeps a
+// consumer's dQ accumulator (64 fp32), S and dP (32 fp32 each) and dS as
+// bf16 A operands (16) within its 240 registers; at d = 64 the
+// accumulator is half as large and a 128-key stage fits, and runs faster
+// than a 64-key one. Stages: five at d = 128 (230,488 bytes) ran faster
+// than three or four; at d = 64 three to six ran alike (ops/tune_dq.py,
+// PERF.md).
 template <int D>
-constexpr size_t dq_bf16_smem() {
-  // Q, dO, K, V tiles of [64][D + 8] bf16
-  return sizeof(bf16) * 4 * kBlk * (D + 8);
-}
+using Build = Plan<D, D == 64 ? 128 : 64, D == 64 ? 4 : 5>;
 
-// B3, bf16: one block per (batch*head, 64 q rows).
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kMmaThreads)
-bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+template <int D, int BK, int STAGES, bool CAUSAL>
+__global__ void __maxnreg__(kEntryRegs)
+bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                   int heads, int kv_heads, int seq_q, int seq_k,
-                   float scale) {
-  constexpr int S = D + 8;
-  constexpr int KS = D / 16;    // k-steps over d
-  constexpr int NT = kBlk / 8;  // key n-tiles of S and dP
-  constexpr int DT = D / 8;     // d n-tiles of dQ
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kBlk * S;
-  bf16* ks = dos + kBlk * S;
-  bf16* vs = ks + kBlk * S;
+                   const int4* __restrict__ schedule, int heads,
+                   int kv_heads, int seq_q, int seq_k, float scale) {
+  using P = Plan<D, BK, STAGES>;
+  extern __shared__ __align__(1024) uint8_t tma_smem[];
+  uint8_t* smem = tma_smem + ((1024 - (smem_u32(tma_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::kBar);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = blockIdx.x * kBlk;
-  const int bh = blockIdx.y;
+  // This block's work, from the launch plan: (b*h, q tile, first K/V
+  // stage, end K/V stage).
+  const int4 work = __ldg(schedule + blockIdx.x);
+  const int bh = work.x;
+  const int q0 = work.y * kTileQ;
   const int b = bh / heads;
-  const int h = bh - b * heads;
-  const int kvh = h / (heads / kv_heads);
-  const size_t kv_off = (size_t)(b * kv_heads + kvh) * seq_k * D;
-  const bf16* kp = k + kv_off;
-  const bf16* vp = v + kv_off;
+  const int bkv = b * kv_heads + (bh - b * heads) / (heads / kv_heads);
 
-  load_tile<D, kBlk>(qs, q + (size_t)bh * seq_q * D, q0, seq_q);
-  load_tile<D, kBlk>(dos, dout + (size_t)bh * seq_q * D, q0, seq_q);
-
-  // Each lane holds two q rows of its warp's 16: g ("lo") and g + 8 ("hi").
-  const int row_lo = q0 + warp * 16 + g;
-  const int row_hi = row_lo + 8;
-  const float* lse_bh = lse + (size_t)bh * seq_q;
-  const float* delta_bh = delta + (size_t)bh * seq_q;
-  const float lse_lo = row_lo < seq_q ? lse_bh[row_lo] : 0.f;
-  const float lse_hi = row_hi < seq_q ? lse_bh[row_hi] : 0.f;
-  const float del_lo = row_lo < seq_q ? delta_bh[row_lo] : 0.f;
-  const float del_hi = row_hi < seq_q ? delta_bh[row_hi] : 0.f;
-
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[dt][j] = 0.f;
-
-  // Causal: keys past the tile's last q row are all masked.
-  const int k_end = CAUSAL ? min(seq_k, q0 + kBlk) : seq_k;
-  for (int k0 = 0; k0 < k_end; k0 += kBlk) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D, kBlk>(ks, kp, k0, seq_k);
-    load_tile<D, kBlk>(vs, vp, k0, seq_k);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T (K and V are [key][d]: B stored [n][k]).
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[nt][j] = dp[nt][j] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t aq[4], ado[4];
-      frag_a(aq, qs + warp * 16 * S + kk * 16, S, g, t);
-      frag_a(ado, dos + warp * 16 * S + kk * 16, S, g, t);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b0, b1;
-        frag_b_nk(b0, b1, ks + nt * 8 * S + kk * 16, S, g, t);
-        mma_bf16(s[nt], aq, b0, b1);
-        frag_b_nk(b0, b1, vs + nt * 8 * S + kk * 16, S, g, t);
-        mma_bf16(dp[nt], ado, b0, b1);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
     }
-
-    // P = exp(scale * S - LSE) where visible, else 0; dS = P (dP - delta),
-    // kept in s[].
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kc = k0 + nt * 8 + 2 * t + j;
-        const bool in = kc < seq_k;
-        const float p_lo = (in && (!CAUSAL || kc <= row_lo))
-                               ? expf(s[nt][j] * scale - lse_lo) : 0.f;
-        const float p_hi = (in && (!CAUSAL || kc <= row_hi))
-                               ? expf(s[nt][2 + j] * scale - lse_hi) : 0.f;
-        s[nt][j] = p_lo * (dp[nt][j] - del_lo);
-        s[nt][2 + j] = p_hi * (dp[nt][2 + j] - del_hi);
-      }
-    }
-
-    // dQ += dS K: dS is the A operand (k = key); K [key][d] is B stored
-    // [k][n].
-#pragma unroll
-    for (int kk = 0; kk < kBlk / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        uint32_t b0, b1;
-        frag_b_kn(b0, b1, ks + kk * 16 * S + dt * 8, S, g, t);
-        mma_bf16(acc[dt], a, b0, b1);
-      }
-    }
+    mbar_init(qbar, 1);
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  bf16* o_lo = dq + ((size_t)bh * seq_q + row_lo) * D;
-  bf16* o_hi = o_lo + 8 * D;
+  const int wg = warpgroup();
+  if (wg == kConsumers) {
+    // Producer warpgroup: one thread loads Q and dO once, then keeps the
+    // ring of K/V stages full.
+    regs_shrink<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      prefetch_map(&tq);
+      prefetch_map(&tdo);
+      prefetch_map(&tk);
+      prefetch_map(&tv);
+      mbar_expect_tx(qbar, 2 * P::kQBytes);
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (row_lo < seq_q)
-      *reinterpret_cast<__nv_bfloat162*>(o_lo + col) =
-          __floats2bfloat162_rn(acc[dt][0] * scale, acc[dt][1] * scale);
-    if (row_hi < seq_q)
-      *reinterpret_cast<__nv_bfloat162*>(o_hi + col) =
-          __floats2bfloat162_rn(acc[dt][2] * scale, acc[dt][3] * scale);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(smem + P::kQ + c * kTileQ * 128, &tq, qbar, c * 64, q0, bh);
+        tma_load(smem + P::kDO + c * kTileQ * 128, &tdo, qbar, c * 64, q0,
+                 bh);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = work.z; kt < work.w; ++kt) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], 2 * P::kKVBytes);
+        uint8_t* ks = smem + P::kK + stage * P::kKVBytes;
+        uint8_t* vs = smem + P::kV + stage * P::kKVBytes;
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(ks + c * BK * 128, &tk, &full[stage], c * 64, kt * BK, bkv);
+          tma_load(vs + c * BK * 128, &tv, &full[stage], c * 64, kt * BK, bkv);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: q rows q0 + 64 wg .. + 63. Each thread holds
+    // two rows (lo, hi = lo + 8) of the wgmma accumulator layout, and
+    // their LSE (times log2(e)) and delta in registers for the whole
+    // loop. A row past the end reads LSE = +inf: its probabilities are 0.
+    regs_grow<kConsumerRegs>();
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int row_first = q0 + wg * 64;
+    const int row_lo = row_first + (t / 32) * 16 + lane / 4;
+    const int row_hi = row_lo + 8;
+    const int cp = 2 * (lane % 4);
+    const float sl2 = scale * kLog2e;
+    const float* lse_bh = lse + (size_t)bh * seq_q;
+    const float* delta_bh = delta + (size_t)bh * seq_q;
+    const float l2_lo = row_lo < seq_q ? lse_bh[row_lo] * kLog2e : INFINITY;
+    const float l2_hi = row_hi < seq_q ? lse_bh[row_hi] * kLog2e : INFINITY;
+    const float d_lo = row_lo < seq_q ? delta_bh[row_lo] : 0.f;
+    const float d_hi = row_hi < seq_q ? delta_bh[row_hi] : 0.f;
+    // Whether this warpgroup has a row before the end (the last q tile's
+    // second warpgroup has none when seq_q % 128 is 1 to 64).
+    const bool live = row_first < seq_q;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const uint8_t* qs = smem + P::kQ + wg * 64 * 128;
+    const uint8_t* dos = smem + P::kDO + wg * 64 * 128;
+
+    mbar_wait(qbar, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = work.z; kt < work.w; ++kt) {
+      const int k0 = kt * BK;
+      mbar_wait(&full[stage], phase);
+      // Causal: a stage wholly past this warpgroup's last row adds 0.
+      if (live && (!CAUSAL || k0 <= row_first + 63)) {
+        const uint8_t* ks = smem + P::kK + stage * P::kKVBytes;
+        const uint8_t* vs = smem + P::kV + stage * P::kKVBytes;
+
+        // S = Q K^T and dP = dO V^T, all operands K-major.
+        float s[BK / 2], dp[BK / 2];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<BK, 0>(
+              s,
+              desc_sw128(qs + (kk / 4) * kTileQ * 128 + (kk % 4) * 32, 16,
+                         1024),
+              desc_sw128(ks + (kk / 4) * BK * 128 + (kk % 4) * 32, 16, 1024),
+              kk);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<BK, 0>(
+              dp,
+              desc_sw128(dos + (kk / 4) * kTileQ * 128 + (kk % 4) * 32, 16,
+                         1024),
+              desc_sw128(vs + (kk / 4) * BK * 128 + (kk % 4) * 32, 16, 1024),
+              kk);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // P = 2^(S scale log2(e) - LSE log2(e)), masked only on the
+        // diagonal stage and the ragged last stage; dS = P (dP - delta)
+        // into dp. A key past the end reads a zero K row from TMA, so it
+        // would add dS 0 to dQ; it is masked all the same, so that an
+        // infinite P there cannot make 0 x inf.
+        const bool edge =
+            (CAUSAL && k0 + BK - 1 > row_first) || k0 + BK > seq_k;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + 8 * j + cp + e;
+            float p_lo = exp2_approx(fmaf(s[4 * j + e], sl2, -l2_lo));
+            float p_hi = exp2_approx(fmaf(s[4 * j + 2 + e], sl2, -l2_hi));
+            if (edge) {
+              if (key >= seq_k || (CAUSAL && key > row_lo)) p_lo = 0.f;
+              if (key >= seq_k || (CAUSAL && key > row_hi)) p_hi = 0.f;
+            }
+            dp[4 * j + e] = p_lo * (dp[4 * j + e] - d_lo);
+            dp[4 * j + 2 + e] = p_hi * (dp[4 * j + 2 + e] - d_hi);
+          }
+
+        // dQ += dS K: dS from registers (bf16), K MN-major from the same
+        // swizzled stage (no transposed copy).
+        uint32_t da[BK / 16][4];
+        acc_to_a<BK>(da, dp);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs<D, 1>(acc, da[kk],
+                         desc_sw128(ks + kk * 2048, BK * 128, 1024), 1);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(acc);
+        fence_regs(da);
+      }
+      if (t == 0) mbar_arrive(&empty[stage]);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // dQ = scale * acc, rows past the end not stored.
+    bf16* o_lo = dq + ((size_t)bh * seq_q + row_lo) * D;
+    bf16* o_hi = o_lo + 8 * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + cp;
+      if (row_lo < seq_q)
+        *reinterpret_cast<__nv_bfloat162*>(o_lo + col) =
+            __floats2bfloat162_rn(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+      if (row_hi < seq_q)
+        *reinterpret_cast<__nv_bfloat162*>(o_hi + col) = __floats2bfloat162_rn(
+            acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+    }
   }
 }
+
+template <int D, int BK, int STAGES, bool CAUSAL>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, void* dq, int batch,
+           int heads, int kv_heads, int seq_q, int seq_k, const int* plan,
+           const int* schedule, float scale, cudaStream_t stream) {
+  using P = Plan<D, BK, STAGES>;
+  if (plan[0] != kTileQ || plan[1] != BK || plan[2] != STAGES ||
+      plan[3] != P::kSmem || plan[4] <= 0 || schedule == nullptr)
+    return kErrPlan;
+  CUtensorMap tq, tk, tv, tdo;
+  int err;
+  if ((err = make_map_bf16(&tq, q, D, seq_q, batch * heads, kTileQ)) ||
+      (err = make_map_bf16(&tdo, dout, D, seq_q, batch * heads, kTileQ)) ||
+      (err = make_map_bf16(&tk, k, D, seq_k, batch * kv_heads, BK)) ||
+      (err = make_map_bf16(&tv, v, D, seq_k, batch * kv_heads, BK)))
+    return err;
+  auto kernel = bwd_dq_bf16_kernel<D, BK, STAGES, CAUSAL>;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (rc != cudaSuccess) return (int)rc;
+  kernel<<<plan[4], kThreads, P::kSmem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq),
+      reinterpret_cast<const int4*>(schedule), heads, kv_heads, seq_q, seq_k,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace dq
 
 // ---------------------------------------------------------------------------
 // B4, bfloat16: TMA + wgmma, warp-specialised
@@ -297,15 +364,12 @@ namespace dkv {
 
 using namespace hopper;
 
-constexpr int kConsumers = 2;            // consumer warpgroups, 64 keys each
 constexpr int kTileK = 64 * kConsumers;  // keys per block
 // q rows per step. 64 keeps a consumer's dK and dV accumulators (2 x d/2
 // fp32) and its S^T and dP^T tiles (2 x 32 fp32) within the consumers'
 // 240 registers at d = 128 without spills; 32-row steps (narrower wgmma)
 // ran slower on the card.
 constexpr int kStepQ = 64;
-constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory plan for q steps of BQ rows (byte offsets; operand tiles
 // 1024-byte aligned). `flash_bwd_dkv_plan` in ops/attention.py states
@@ -882,9 +946,9 @@ struct Args {
   int batch, heads, kv_heads, seq_q, seq_k;
   float scale;
   cudaStream_t stream;
-  const int* plan;      // B4 bfloat16: keys per block, q rows per step,
+  const int* plan;      // bfloat16: rows per block, rows per step,
                         // stages, shared-memory bytes, blocks
-  const int* schedule;  // B4 bfloat16: one int4 per block (device memory)
+  const int* schedule;  // bfloat16: one int4 per block (device memory)
 };
 
 template <typename Kernel>
@@ -895,28 +959,23 @@ int set_smem(Kernel kernel, size_t smem) {
 
 template <int D, bool CAUSAL>
 int launch_dq(int dtype, const Args& a) {
-  const dim3 grid((a.seq_q + kBlk - 1) / kBlk, a.batch * a.heads);
-  int err;
   if (dtype == 0) {
+    const dim3 grid((a.seq_q + kBlk - 1) / kBlk, a.batch * a.heads);
     auto kernel = bwd_dq_f32_kernel<D, CAUSAL>;
+    int err;
     if ((err = set_smem(kernel, dq_f32_smem<D>())) != 0) return err;
     kernel<<<grid, kFmaThreads, dq_f32_smem<D>(), a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         a.lse, a.delta, static_cast<float*>(a.dq), a.heads, a.kv_heads,
         a.seq_q, a.seq_k, a.scale);
-  } else if (dtype == 1) {
-    auto kernel = bwd_dq_bf16_kernel<D, CAUSAL>;
-    if ((err = set_smem(kernel, dq_bf16_smem<D>())) != 0) return err;
-    kernel<<<grid, kMmaThreads, dq_bf16_smem<D>(), a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        a.lse, a.delta, static_cast<bf16*>(a.dq), a.heads, a.kv_heads,
-        a.seq_q, a.seq_k, a.scale);
-  } else {
-    return -1;
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (dtype != 1) return hopper::kErrUnsupported;
+  using B = dq::Build<D>;
+  return dq::launch<D, B::kStepK, B::kStages, CAUSAL>(
+      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.batch, a.heads,
+      a.kv_heads, a.seq_q, a.seq_k, a.plan, a.schedule, a.scale, a.stream);
 }
 
 template <int D, bool CAUSAL>
@@ -963,22 +1022,27 @@ int dispatch(int which, int head_dim, int dtype, int causal, const Args& a) {
 // C entry points for ctypes. dtype: 0 = float32, 1 = bfloat16. Inputs are
 // contiguous [batch, heads, seq_q, d] (q, dout, and dq) and [batch,
 // kv_heads, seq_k, d] (k, v, dk, dv); lse and delta are [batch, heads,
-// seq_q] fp32. Outputs are in the input dtype. B4's bfloat16 kernel takes
-// its launch plan from ops/attention.py: keys per block, q rows per step,
-// stages and shared-memory bytes, which must match this build, and the
-// schedule, `blocks` int4s in device memory (b*kv_heads, key tile, first
-// and end q step), one per block in launch order. float32 and B3 take
-// none (0s, NULL). Each returns 0, the CUDA error of the
-// launch, or a negative hopper::kErr* code (-1: dtype / head dim not
-// taken).
+// seq_q] fp32. Outputs are in the input dtype. The bfloat16 kernels take
+// their launch plan from ops/attention.py: rows per block (B3: q rows, B4:
+// keys), rows per step (B3: keys of a K/V stage, B4: q rows of a Q/dO
+// stage), stages and shared-memory bytes, which must match this build,
+// and the schedule, `blocks` int4s in device memory (group, tile, first
+// and end step), one per block in launch order. float32 takes none (0s,
+// NULL). Each returns 0, the CUDA error of the launch, or a negative
+// hopper::kErr* code (-1: dtype / head dim not taken).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
-                            const float* delta, void* dq, int batch, int heads,
-                            int kv_heads, int seq_q, int seq_k, int head_dim,
-                            int dtype, int causal, float scale, void* stream) {
-  const Args a{q,     k,        v,     dout,  lse,   delta,
-               dq,    nullptr,  nullptr, batch, heads, kv_heads,
-               seq_q, seq_k,    scale, static_cast<cudaStream_t>(stream)};
+                            const float* delta, void* dq, const int* schedule,
+                            int batch, int heads, int kv_heads, int seq_q,
+                            int seq_k, int head_dim, int dtype, int causal,
+                            int block_q, int block_k, int stages,
+                            int smem_bytes, int blocks, float scale,
+                            void* stream) {
+  const int plan[5] = {block_q, block_k, stages, smem_bytes, blocks};
+  const Args a{q,     k,       v,       dout,  lse,   delta,
+               dq,    nullptr, nullptr, batch, heads, kv_heads,
+               seq_q, seq_k,   scale,   static_cast<cudaStream_t>(stream),
+               plan,  schedule};
   return dispatch(0, head_dim, dtype, causal, a);
 }
 

@@ -26,13 +26,14 @@ K/V may carry fewer heads than q (GQA): q head h attends kv head
 models/transformer.py. The kernels read the shared head in place and B4
 sums its gradient over the group; the plain versions expand first.
 
-The bfloat16 kernels B1 and B4 are Hopper designs (TMA loads into a ring
-of shared-memory stages, wgmma products, one producer warp and two
-consumer warpgroups); ``flash_fwd_plan`` / ``flash_bwd_dkv_plan`` pick
-their launch plan — tile sizes, stages, shared-memory bytes — and its
-schedule, which tile each block computes and over which steps it loops,
-in launch order. The C entry point refuses a plan that does not match its
-build, and each block reads its row of the schedule.
+The bfloat16 kernels B1, B3 and B4 are Hopper designs (TMA loads into a
+ring of shared-memory stages, wgmma products, one producer warpgroup and
+two consumer warpgroups); ``flash_fwd_plan`` / ``flash_bwd_dq_plan`` /
+``flash_bwd_dkv_plan`` pick their launch plan — tile sizes, stages,
+shared-memory bytes — and its schedule, which tile each block computes
+and over which steps it loops, in launch order. The C entry point
+refuses a plan that does not match its build, and each block reads its
+row of the schedule.
 
 The kernels take head dims 64 and 128. On the card, any other head dim
 up to 128 is zero-padded to the next of them with the softmax scale of
@@ -211,7 +212,7 @@ def _check_kernel_inputs(name, q, k, v, *rows):
 
 
 # ---------------------------------------------------------------------------
-# launch plans of the bfloat16 Hopper kernels (B1, B4)
+# launch plans of the bfloat16 Hopper kernels (B1, B3, B4)
 # ---------------------------------------------------------------------------
 
 SMEM_LIMIT = 232_448   # bytes of shared memory one block may use (H100)
@@ -227,14 +228,14 @@ class LaunchPlan:
     """How one launch of a bfloat16 Hopper kernel is cut.
 
     ``groups`` are the (batch, head) pairs the kernel runs over (b·h for
-    B1, b·kv_heads for B4) and ``tiles`` the row tiles of each: q tiles of
-    ``block_rows`` rows (B1) or key tiles (B4). Each block loops over
-    ``step_rows``-row steps (B1: keys of a K/V stage; B4: q rows of a Q/dO
-    stage) through a ring of ``stages`` shared-memory stages, the steps
-    that ``schedule()`` gives it. ``boxes`` are the TMA boxes, (operand,
-    bytes per box row, box rows). ``args`` is what the C entry point takes
-    beside the schedule: the first four it checks against its build, the
-    last is the grid."""
+    B1 and B3, b·kv_heads for B4) and ``tiles`` the row tiles of each: q
+    tiles of ``block_rows`` rows (B1, B3) or key tiles (B4). Each block
+    loops over ``step_rows``-row steps (B1, B3: keys of a K/V stage; B4: q
+    rows of a Q/dO stage) through a ring of ``stages`` shared-memory
+    stages, the steps that ``schedule()`` gives it. ``boxes`` are the TMA
+    boxes, (operand, bytes per box row, box rows). ``args`` is what the C
+    entry point takes beside the schedule: the first four it checks
+    against its build, the last is the grid."""
 
     kernel: str
     head_dim: int
@@ -266,14 +267,14 @@ class LaunchPlan:
         else: it computes that tile and loops over steps first .. end - 1
         (B4: for each of the group's n_rep q heads).
 
-        B1 takes q tiles from the last down, so under a causal mask the
-        heaviest start first; a tile's K/V stages end at its last row
+        B1 and B3 take q tiles from the last down, so under a causal mask
+        the heaviest start first; a tile's K/V stages end at its last row
         (causal) or at seq_k. B4 takes key tiles from the first up, the
         ones that own the most q steps; its q steps start at the one
         holding the tile's first key (causal) or at 0, and end at seq_q."""
         i = torch.arange(self.grid)
         group, tile = i % self.groups, i // self.groups
-        if self.kernel == "flash_fwd":
+        if self.kernel in ("flash_fwd", "flash_bwd_dq"):
             tile = self.tiles - 1 - tile
             end_row = torch.full_like(tile, self.seq_k)
             if self.causal:
@@ -304,6 +305,27 @@ def flash_fwd_plan(batch: int, heads: int, kv_heads: int, seq_q: int,
     boxes = (("q", _BOX_ROW, block), ("k", _BOX_ROW, step),
              ("v", _BOX_ROW, step))
     return LaunchPlan("flash_fwd", head_dim, bool(causal), seq_q, seq_k,
+                      heads // kv_heads, batch * heads, -(-seq_q // block),
+                      block, step, stages, _THREADS, smem, boxes)
+
+
+@functools.lru_cache(maxsize=256)
+def flash_bwd_dq_plan(batch: int, heads: int, kv_heads: int, seq_q: int,
+                      seq_k: int, head_dim: int, causal: bool) -> LaunchPlan:
+    """B3 (bf16): 128 q rows a block (two warpgroups of 64) with Q and dO
+    resident, K/V stages of 64 keys in a ring of 5 at d = 128, of 128 keys
+    in a ring of 4 at d = 64; the shared-memory layout of
+    csrc/flash_bwd.cu's dq::Plan. The key stage is what keeps a
+    consumer's dQ accumulator (d/2 fp32), its S and dP tiles and dS's bf16
+    operands in registers without spills."""
+    block = _WG_ROWS * _CONSUMERS
+    step, stages = (64, 5) if head_dim == 128 else (128, 4)
+    q_bytes = block * head_dim * 2
+    kv_bytes = step * head_dim * 2
+    smem = 1024 + 2 * q_bytes + stages * 2 * kv_bytes + (2 * stages + 1) * 8
+    boxes = (("q", _BOX_ROW, block), ("do", _BOX_ROW, block),
+             ("k", _BOX_ROW, step), ("v", _BOX_ROW, step))
+    return LaunchPlan("flash_bwd_dq", head_dim, bool(causal), seq_q, seq_k,
                       heads // kv_heads, batch * heads, -(-seq_q // block),
                       block, step, stages, _THREADS, smem, boxes)
 
@@ -410,15 +432,18 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal: bool,
                       scale: float | None = None):
     """Launch kernel B3: dQ ([b, h, s, d], q's dtype) from the saved
     forward tensors, the output cotangent ``g`` and fp32 ``lse`` /
-    ``delta`` ([b, h, s])."""
+    ``delta`` ([b, h, s]). bfloat16 runs the Hopper design with the plan
+    of ``flash_bwd_dq_plan``."""
     _check_kernel_inputs("flash_bwd_dq", q, k, v, ("g", g))
     dq = torch.empty_like(q)
     if dq.numel() == 0 or k.numel() == 0:
         return dq.zero_()
-    fn = _kernel_fn("flash_bwd", "flash_bwd_dq", 7, 8)
+    schedule, plan = _launch_plan(flash_bwd_dq_plan, q, k, causal)
+    *ints, scale = _bwd_args(q, k, causal, scale)
+    fn = _kernel_fn("flash_bwd", "flash_bwd_dq", 8, 13)
     _run(fn, "flash_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
          g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-         *_bwd_args(q, k, causal, scale))
+         schedule, *ints, *plan, scale)
     FLASH_BWD_DQ.launches += 1
     return dq
 

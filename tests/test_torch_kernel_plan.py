@@ -1,7 +1,9 @@
 """Launch plans of the port's bfloat16 Hopper kernels (B1 flash forward,
-B4 flash dK/dV) and a plain-torch tile model of their arithmetic.
+B3 flash dQ, B4 flash dK/dV) and a plain-torch tile model of their
+arithmetic.
 
-The plans (``flash_fwd_plan`` / ``flash_bwd_dkv_plan`` in
+The plans (``flash_fwd_plan`` / ``flash_bwd_dq_plan`` /
+``flash_bwd_dkv_plan`` in
 k8s_device_plugin_tpu_torch/ops/attention.py) are what the wrappers hand
 the C entry points: they must fit the card (shared memory, TMA box rows),
 and their schedule — the table each block reads its tile and its steps
@@ -12,8 +14,9 @@ The tile model repeats the kernels' arithmetic block by block from that
 same schedule: zero-filled ragged tiles (what TMA reads past the end), base-2
 online softmax with scale·log2(e) folded into the scores, masks only on
 the diagonal and ragged tiles, P (and dS) rounded to bf16 as the
-tensor-core operands, LSE back in natural log, and B4's transposed score
-tile summed over each GQA group in fp32. It is held against the JAX
+tensor-core operands, LSE back in natural log, B3's probabilities from
+LSE·log2(e) over the K/V stages of a resident q tile, and B4's transposed
+score tile summed over each GQA group in fp32. It is held against the JAX
 package's Pallas kernels in interpret mode (``_flash_forward``, and
 ``jax.vjp`` of ``flash_attention_with_lse``). Inputs are float32 from a
 seed. Tolerances: with the operands kept in float32 the model is the
@@ -33,7 +36,8 @@ from k8s_device_plugin_tpu.ops import attention as jattn
 from k8s_device_plugin_tpu_torch.ops import attention as tattn
 
 SEQS = [1, 63, 64, 65, 127, 128, 129, 200, 1024, 2048]
-PLANS = {"b1": tattn.flash_fwd_plan, "b4": tattn.flash_bwd_dkv_plan}
+PLANS = {"b1": tattn.flash_fwd_plan, "b3": tattn.flash_bwd_dq_plan,
+         "b4": tattn.flash_bwd_dkv_plan}
 LOG2E = 1.4426950408889634
 
 
@@ -78,7 +82,7 @@ def test_schedule_covers_each_tile_once_heaviest_first(kernel, seq):
             step = plan.step_rows
             for _, t, first, end in rows.tolist():
                 r0 = t * plan.block_rows
-                if kernel == "b1":
+                if kernel in ("b1", "b3"):
                     # keys the tile's real q rows may see: all of them, or
                     # (causal) those up to its last real row
                     last = seq - 1
@@ -158,6 +162,48 @@ def tile_forward(q, k, v, causal, round_p):
         lse[bh, q0:q0 + bq] = m * scale + torch.log(den)
     return (out.view(b, h, -1, d)[:, :, :s],
             lse.view(b, h, -1)[:, :, :s])
+
+
+def tile_dq(q, k, v, g, lse, delta, causal, round_ops):
+    """B3's arithmetic, block by block as flash_bwd_dq_plan's schedule
+    runs it: per q tile, the K/V stages up to its diagonal, base-2
+    probabilities from LSE·log2(e), masks on the diagonal and ragged
+    stages only, dS rounded to bf16 as the A operand of dS·K; dq. A tile
+    no block computes stays NaN."""
+    b, h, s, d = q.shape
+    s_k = k.shape[2]
+    plan = tattn.flash_bwd_dq_plan(b, h, k.shape[1], s, s_k, d, causal)
+    bq, bk = plan.block_rows, plan.step_rows
+    scale = d ** -0.5
+    sl2 = scale * LOG2E
+    rows_q = plan.tiles * bq
+    kx = _pad_rows(tattn.expand_kv(k, h), -(-s_k // bk) * bk).flatten(0, 1)
+    vx = _pad_rows(tattn.expand_kv(v, h), -(-s_k // bk) * bk).flatten(0, 1)
+    qx = _pad_rows(q, rows_q).flatten(0, 1)
+    gx = _pad_rows(g, rows_q).flatten(0, 1)
+    # a row past the end reads LSE = +inf: its probabilities are 0
+    lse2 = _pad_rows((lse * LOG2E).flatten(0, 1), rows_q, torch.inf)
+    dl = _pad_rows(delta.flatten(0, 1), rows_q)
+    dq = torch.full_like(qx, torch.nan)
+    for bh, t, first, end in plan.schedule().tolist():
+        q0 = t * bq
+        rows = torch.arange(q0, q0 + bq)
+        qs, dos = qx[bh, q0:q0 + bq], gx[bh, q0:q0 + bq]
+        acc = torch.zeros(bq, d)
+        for kt in range(first, end):
+            k0 = kt * bk
+            keys = torch.arange(k0, k0 + bk)
+            kb = kx[bh, k0:k0 + bk]
+            p = torch.exp2((qs @ kb.T) * sl2 - lse2[bh, q0:q0 + bq, None])
+            if (causal and k0 + bk - 1 > q0) or k0 + bk > s_k:
+                bad = keys[None, :] >= s_k
+                if causal:
+                    bad = bad | (keys[None, :] > rows[:, None])
+                p = p.masked_fill(bad, 0.0)
+            ds = p * (dos @ vx[bh, k0:k0 + bk].T - dl[bh, q0:q0 + bq, None])
+            acc += _bf16(ds, round_ops) @ kb
+        dq[bh, q0:q0 + bq] = acc * scale
+    return dq.view(b, h, -1, d)[:, :, :s]
 
 
 def tile_dkv(q, k, v, g, lse, delta, causal, round_ops):
@@ -245,15 +291,12 @@ def test_tile_model_forward_matches_pallas_interpret(seq, dim, n_rep, causal):
     np.testing.assert_allclose(lse.numpy(), want_l, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("seq,dim,n_rep,causal", [
-    (129, 64, 4, True), (200, 128, 1, True), (63, 64, 4, False),
-    (200, 64, 4, True),
-])
-def test_tile_model_dkv_matches_jax_vjp(seq, dim, n_rep, causal):
-    """The model's dK/dV, summed over each GQA group, against jax.vjp of
-    the reference's flash_attention_with_lse (Pallas backward in interpret
-    mode) over repeat_kv, with random cotangents on both outputs."""
-    q, k, v = _inputs(seq, dim, n_rep, seed=2 * seq + dim + n_rep)
+def _jax_backward(seq, dim, n_rep, causal, seed):
+    """Inputs from ``seed``, random cotangents on both outputs, and
+    jax.vjp of the reference's flash_attention_with_lse (Pallas backward
+    in interpret mode) over repeat_kv: ((q, k, v, g, lse, delta) as torch
+    tensors, (dq, dk, dv) as numpy arrays)."""
+    q, k, v = _inputs(seq, dim, n_rep, seed=seed)
     rng = np.random.default_rng(seq)
     g = rng.standard_normal(q.shape, dtype=np.float32)
     g_lse = rng.standard_normal(q.shape[:3], dtype=np.float32)
@@ -265,19 +308,52 @@ def test_tile_model_dkv_matches_jax_vjp(seq, dim, n_rep, causal):
             causal=causal, block_q=bq, block_k=bk, interpret=True)
 
     (out, lse), vjp = jax.vjp(fn, *map(jnp.asarray, (q, k, v)))
-    _, want_dk, want_dv = vjp((jnp.asarray(g), jnp.asarray(g_lse)))
+    want = tuple(np.asarray(x)
+                 for x in vjp((jnp.asarray(g), jnp.asarray(g_lse))))
     out, lse, tg, tgl = (torch.from_numpy(np.array(x))
                          for x in (out, lse, g, g_lse))
     delta = tattn.attention_delta(out, tg, tgl)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    return (tq, tk, tv, tg, lse, delta), want
+
+
+def _assert_close(got, want, tol):
+    """fp32 operands: atol/rtol 5e-4; bf16-rounded: ``tol`` of the
+    largest value."""
+    assert got.shape == want.shape
+    if tol is None:
+        np.testing.assert_allclose(got.numpy(), want, atol=5e-4, rtol=5e-4)
+    else:
+        assert np.abs(got.numpy() - want).max() <= tol * np.abs(want).max()
+
+
+@pytest.mark.parametrize("seq,dim,n_rep,causal", [
+    (129, 64, 4, True), (200, 128, 1, True), (63, 64, 4, False),
+    (200, 64, 4, True),
+])
+def test_tile_model_dkv_matches_jax_vjp(seq, dim, n_rep, causal):
+    """The model's dK/dV, summed over each GQA group, against jax.vjp of
+    the reference's flash_attention_with_lse (Pallas backward in interpret
+    mode) over repeat_kv, with random cotangents on both outputs."""
+    args, (_, want_dk, want_dv) = _jax_backward(
+        seq, dim, n_rep, causal, seed=2 * seq + dim + n_rep)
     for round_ops, tol in ((False, None), (True, 2e-2)):
-        dk, dv = tile_dkv(tq, tk, tv, tg, lse, delta, causal, round_ops)
-        for got, want in ((dk, want_dk), (dv, want_dv)):
-            want = np.asarray(want)
-            assert got.shape == want.shape
-            if tol is None:
-                np.testing.assert_allclose(got.numpy(), want, atol=5e-4,
-                                           rtol=5e-4)
-            else:
-                assert np.abs(got.numpy() - want).max() \
-                    <= tol * np.abs(want).max()
+        dk, dv = tile_dkv(*args, causal, round_ops)
+        _assert_close(dk, want_dk, tol)
+        _assert_close(dv, want_dv, tol)
+
+
+@pytest.mark.parametrize("seq,dim,n_rep,causal", [
+    (129, 64, 4, True), (200, 128, 1, True), (63, 128, 4, False),
+    (256, 64, 1, False),
+])
+def test_tile_model_dq_matches_jax_vjp(seq, dim, n_rep, causal):
+    """The model's dQ against jax.vjp of the reference's
+    flash_attention_with_lse (Pallas backward in interpret mode) over
+    repeat_kv, with random cotangents on both outputs: ragged lengths,
+    GQA read in place, d = 64 (128-key stages) and d = 128 (64-key
+    stages), causal and not."""
+    args, (want_dq, _, _) = _jax_backward(
+        seq, dim, n_rep, causal, seed=3 * seq + dim + n_rep)
+    for round_ops, tol in ((False, None), (True, 2e-2)):
+        _assert_close(tile_dq(*args, causal, round_ops), want_dq, tol)

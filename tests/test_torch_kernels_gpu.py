@@ -73,8 +73,9 @@ def test_flash_kernel_matches_plain(cuda, shape, kv_heads, dtype, tol,
 
 
 # Tile edges of the Hopper bf16 kernels (128-row q tiles and key stages in
-# B1, 128-key blocks and 64-row q steps in B4): one row, one short of and
-# one past a tile, ragged, and the flagship length.
+# B1, 128-row q tiles and 64- or 128-key stages in B3, 128-key blocks and
+# 64-row q steps in B4): one row, one short of and one past a tile,
+# ragged, and the flagship length.
 EDGE_SEQS = [1, 127, 129, 200, 2048]
 
 
@@ -98,8 +99,9 @@ def test_hopper_forward_tile_edges(cuda, seq, dim, causal):
 @pytest.mark.parametrize("dim", [64, 128])
 @pytest.mark.parametrize("seq", EDGE_SEQS)
 def test_hopper_backward_tile_edges(cuda, seq, dim, causal):
-    """B4's bf16 kernel (with B3) against the plain backward at the tile
-    edges, GQA with 4 q heads per kv head summed inside the block."""
+    """B3's and B4's bf16 kernels against the plain backward at the tile
+    edges, GQA with 4 q heads per kv head (read in place by B3, summed
+    inside the block by B4)."""
     shape = (1, 8, seq, dim)
     q, k, v = _qkv(shape, 2, torch.bfloat16, seed=seq + dim + 1)
     rng = np.random.default_rng(seq)
@@ -132,7 +134,25 @@ def test_hopper_dkv_is_deterministic(cuda):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-@pytest.mark.parametrize("kernel", ["b1", "b4"])
+def test_hopper_dq_is_deterministic(cuda):
+    """One B3 block owns each dQ row, and no atomics are used: two
+    launches on the same inputs give bitwise-equal dQ."""
+    shape = (2, 8, 640, 128)
+    q, k, v = _qkv(shape, 2, torch.bfloat16, seed=23)
+    g = _qkv(shape, 8, torch.bfloat16, seed=24)[0]
+    out, lse = attention.flash_forward_cuda(q, k, v, True)
+    delta = attention.attention_delta(out, g)
+    first = attention.flash_bwd_dq_cuda(q, k, v, g, lse, delta, True)
+    second = attention.flash_bwd_dq_cuda(q, k, v, g, lse, delta, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and first.abs().max() > 0
+
+
+PLANS = {"b1": attention.flash_fwd_plan, "b3": attention.flash_bwd_dq_plan,
+         "b4": attention.flash_bwd_dkv_plan}
+
+
+@pytest.mark.parametrize("kernel", sorted(PLANS))
 def test_hopper_kernels_follow_the_plan_schedule(cuda, monkeypatch, kernel):
     """Each block computes what its row of the launch plan's schedule
     says: the rows in reverse launch order give bitwise-equal results,
@@ -146,6 +166,8 @@ def test_hopper_kernels_follow_the_plan_schedule(cuda, monkeypatch, kernel):
     def run():
         if kernel == "b1":
             res = attention.flash_forward_cuda(q, k, v, True)[0]
+        elif kernel == "b3":
+            res = attention.flash_bwd_dq_cuda(q, k, v, g, lse, delta, True)
         else:
             res = attention.flash_bwd_dkv_cuda(q, k, v, g, lse, delta, True)[0]
         return res.flatten(0, 1)
@@ -163,9 +185,7 @@ def test_hopper_kernels_follow_the_plan_schedule(cuda, monkeypatch, kernel):
     cut = run()
     torch.cuda.synchronize()
     assert torch.equal(flipped, want)
-    plan = (attention.flash_fwd_plan(2, 8, 2, 300, 300, 128, True)
-            if kernel == "b1" else
-            attention.flash_bwd_dkv_plan(2, 8, 2, 300, 300, 128, True))
+    plan = PLANS[kernel](2, 8, 2, 300, 300, 128, True)
     group, tile = plan.schedule()[0, :2].tolist()
     rows = slice(tile * plan.block_rows, (tile + 1) * plan.block_rows)
     assert (cut[group, rows] == 0).all() and want[group, rows].abs().max() > 0
