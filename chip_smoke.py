@@ -7,7 +7,8 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without a result:
 
 - ``build``: compiles every kernel source under
-  k8s_device_plugin_tpu_torch/csrc/ with nvcc, all at once.
+  k8s_device_plugin_tpu_torch/csrc/ with nvcc, all at once; ptxas's
+  registers and spills of every kernel instance.
 - ``kernel``: each kernel's wrapper against its plain PyTorch version on
   the card, at the serving path's shapes and edge cases, with the
   tolerances stated in KERNEL_CASES; CUDA-event times of the kernel, the
@@ -18,13 +19,26 @@ exits non-zero without a result:
   against plain attention: greedy tokens identical in float32, logits
   within atol 0.1 / rtol 0.05 in bfloat16.
 - ``profile``: torch.profiler over one admission prefill and one decode
-  segment at the serving default: device busy time, idle share, the
-  largest kernels.
+  segment at the serving default (rows KV), and over one 64-token paged
+  prefill chunk and one paged decode segment (4 rows at ~1000 tokens,
+  pages of 16): device busy time, idle share, the largest kernels.
+- ``kernel_paged``: the paged-attention kernel B2 against the plain
+  paged read on the card (PAGED_CASES: decode steps and prefill chunks
+  at the serving default with ragged row lengths up to 1024, GQA, MQA,
+  pages of 8 and 16, rows on the scratch page, d = 128 and 256; the
+  tolerances in PAGED_TOL), two launches bit-equal; CUDA-event times of
+  B2, the plain version and SDPA over already-gathered K/V (a yardstick
+  that skips the page indirection), beside B2's bound by bytes.
 - ``serve``: the llm-serve daemon (models/serve_http.main) in-process
   on a free port at the full-width default config, bf16, rows KV,
   --max-batch 4, warmed up: concurrent completions of mixed prompt
   lengths (one streamed), /healthz, /metrics, the kernels' launch counts
   over exactly this traffic, and a clean drain.
+- ``serve_paged``: the same daemon at its default, paged KV: five
+  completions of mixed prompt lengths (one streamed), the last sharing
+  the first's page-aligned prefix; a prefix hit, copy-on-extend page
+  copies, B2 launched exactly layers x (prefill chunks + decode steps)
+  and B1 never over this traffic, /healthz, /metrics, a clean drain.
 - ``kernel_bwd``: the backward kernels B3 (dQ) and B4 (dK/dV) through
   ``FlashAttention.backward`` against the plain backward on the same
   inputs, random output and lse cotangents, at the training shapes and
@@ -95,6 +109,12 @@ KERNEL_CASES = [
     ("train_b8_s2048_d64_bf16", 8, 8, 8, 2048, 64, "bfloat16", True),
     # the flagship training shape (reported as B1's training time)
     ("train_b8_s2048_d128_bf16", 8, 8, 8, 2048, 128, "bfloat16", True),
+    # d = 256 runs its own instance; d = 192 is zero-padded to it
+    ("d256_b2_s2048_bf16", 2, 8, 8, 2048, 256, "bfloat16", True),
+    ("d256_gqa_s512_f32", 2, 8, 2, 512, 256, "float32", True),
+    ("d256_s129_bf16", 2, 4, 4, 129, 256, "bfloat16", False),
+    ("pad_d192_s512_bf16", 2, 8, 8, 512, 192, "bfloat16", True),
+    ("pad_d192_s200_f32", 2, 4, 2, 200, 192, "float32", True),
 ]
 TRAIN_FWD_CASE = "train_b8_s2048_d128_bf16"
 # Tolerances against the plain version on the same inputs. float32: the
@@ -119,6 +139,13 @@ BWD_CASES = [
     ("s200_bf16", 2, 8, 8, 200, 64, "bfloat16", True),
     ("s200_f32", 2, 8, 8, 200, 64, "float32", True),
     ("pad_d32_bf16", 2, 8, 8, 256, 32, "bfloat16", True),
+    # d = 256 (B4 as two column halves per key tile); d = 192 padded to it
+    ("d256_b2_s2048_bf16", 2, 8, 8, 2048, 256, "bfloat16", True),
+    ("d256_gqa_s512_bf16", 2, 8, 2, 512, 256, "bfloat16", True),
+    ("d256_gqa_s256_f32", 1, 8, 2, 256, 256, "float32", True),
+    ("d256_s129_bf16", 2, 4, 4, 129, 256, "bfloat16", False),
+    ("pad_d192_s512_bf16", 2, 8, 8, 512, 192, "bfloat16", True),
+    ("pad_d192_s200_f32", 1, 4, 2, 200, 192, "float32", True),
 ]
 # Backward tolerances, on max |kernel - plain| / max |plain| of each of
 # dQ, dK, dV. float32: summation order only. bfloat16: the kernels round
@@ -216,18 +243,24 @@ def phase_build() -> dict:
             "kernels_with_spills": spills}
 
 
+_TYPE_ARGS = {"f": "float", "13__nv_bfloat16": "bf16"}
+
+
 def _demangle_kernel(mangled: str) -> str:
     """``..21flash_fwd_bf16_kernelILi128ELb1EE..`` -> ``flash_fwd_bf16_kernel
-    <128,1>`` (Itanium names carry their length before them)."""
+    <128,1>``, ``..17paged_attn_kernelI13__nv_bfloat16Li64EE..`` ->
+    ``paged_attn_kernel<bf16,64>`` (Itanium names carry their length
+    before them)."""
     for m in re.finditer(r"\d+", mangled):
         for i in range(len(m.group())):  # the length may follow other digits
             ident = mangled[m.end():m.end() + int(m.group()[i:])]
             if ident.endswith("_kernel"):
-                args = re.match(r"I((?:L[ib]\d+E)+)E",
+                args = re.match(r"I((?:L[ib]\d+E|f|13__nv_bfloat16)+)E",
                                 mangled[m.end() + len(ident):])
-                vals = re.findall(r"L[ib](\d+)E", args.group(1)) if args \
-                    else []
-                return f"{ident}<{','.join(vals)}>"
+                vals = re.findall(r"L[ib](\d+)E|(f|13__nv_bfloat16)",
+                                  args.group(1)) if args else []
+                names = [n or _TYPE_ARGS[t] for n, t in vals]
+                return f"{ident}<{','.join(names)}>"
     return mangled
 
 
@@ -263,7 +296,11 @@ def phase_kernel() -> tuple[dict, dict]:
         q = torch.randn(b, h, s, d, device="cuda", generator=gen).to(dtype)
         k = torch.randn(b, kvh, s, d, device="cuda", generator=gen).to(dtype)
         v = torch.randn(b, kvh, s, d, device="cuda", generator=gen).to(dtype)
-        out, lse = attention.flash_forward_cuda(q, k, v, causal)
+        # a head dim without its own instance goes through the padding
+        fwd = attention.flash_forward_cuda
+        if attention.kernel_head_dim(d) != d:
+            fwd = attention.flash_attention_with_lse
+        out, lse = fwd(q, k, v, causal)
         torch.cuda.synchronize()
         ref_out, ref_lse = attention.reference_attention_with_lse(
             q, k, v, causal)
@@ -281,10 +318,8 @@ def phase_kernel() -> tuple[dict, dict]:
             "case": name, "shape": [b, h, kvh, s, d], "dtype": dt,
             "causal": causal, "max_abs_err_out": err_o,
             "max_abs_err_lse": err_l, "tol": TOL[dt],
-            "ms": cuda_ms(lambda: attention.flash_forward_cuda(
-                q, k, v, causal)),
-            "host_ms": host_ms(lambda: attention.flash_forward_cuda(
-                q, k, v, causal)),
+            "ms": cuda_ms(lambda: fwd(q, k, v, causal)),
+            "host_ms": host_ms(lambda: fwd(q, k, v, causal)),
             "plain_ms": cuda_ms(
                 lambda: attention.reference_attention_with_lse(
                     q, k, v, causal), iters=5),
@@ -378,7 +413,7 @@ def phase_kernel_bwd() -> tuple[dict, list]:
                     f"kernel_bwd {name}: {gname} off the plain backward by "
                     f"{rel:.3g} of its largest value (tolerance "
                     f"{BWD_TOL[dt]})")
-        if d in (64, 128):
+        if d in (64, 128, 256):
             delta = attention.attention_delta(out, g, g_lse)
             row["dq_ms"] = cuda_ms(lambda: attention.flash_bwd_dq_cuda(
                 q, k, v, g, lse, delta, causal))
@@ -439,6 +474,157 @@ def phase_kernel_bwd() -> tuple[dict, list]:
             "library_ms": main["library_ms"], "timed_case": main["case"],
         })
     return {"phase": "kernel_bwd", "ok": True, "cases": cases}, summaries
+
+
+# Paged-attention cases of B2: (name, batch, L, heads, kv_heads, head_dim,
+# page_tokens, row lengths, dtype). Row r's queries sit at positions
+# lens[r] .. lens[r] + L - 1; a length of -1 is a row whose table points
+# at scratch page 0 only (a padding row of the engine). The first case is
+# a decode step of the serving default (4 rows, 16 heads, d = 64, pages
+# of 16) with ragged lengths up to 1024 and gives the times reported for
+# B2; the second a 64-token prefill chunk at the same shape.
+PAGED_CASES = [
+    ("decode_b4_p16_bf16", 4, 1, 16, 16, 64, 16, (1023, 700, 301, 37),
+     "bfloat16"),
+    ("chunk_b4_L64_p16_bf16", 4, 64, 16, 16, 64, 16, (960, 512, 100, 0),
+     "bfloat16"),
+    ("decode_b4_p16_f32", 4, 1, 16, 16, 64, 16, (1023, 700, 301, 37),
+     "float32"),
+    ("chunk_b4_L64_p16_f32", 4, 64, 16, 16, 64, 16, (960, 512, 100, 0),
+     "float32"),
+    ("gqa_decode_p8_bf16", 4, 1, 16, 4, 64, 8, (1000, 17, 5, -1),
+     "bfloat16"),
+    ("mqa_chunk_L16_p8_f32", 2, 16, 8, 1, 128, 8, (333, -1), "float32"),
+    ("gqa_chunk_L64_p8_bf16", 3, 64, 8, 2, 128, 8, (900, 64, -1),
+     "bfloat16"),
+    ("d256_chunk_L8_p16_bf16", 2, 8, 8, 4, 256, 16, (700, 3), "bfloat16"),
+    ("d256_decode_p16_f32", 2, 1, 8, 8, 256, 16, (511, -1), "float32"),
+]
+# B2 against the plain paged read. float32: summation order only (fp32
+# products on both sides). bfloat16: the plain version rounds the scores
+# and the probabilities to bf16 (as the reference's gather does), B2 keeps
+# them in fp32; outputs are rounded to bf16.
+PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def paged_case_inputs(b, L, h, kvh, d, page_tokens, lens, dtype, gen):
+    """(q, k_pages, v_pages, bt, q_pos, live pages) on the card for one
+    case: each row's pages drawn from the pool in a scrambled order, the
+    table one slot wider than the longest row needs, scratch page 0 in
+    every slot a row does not use."""
+    import torch
+
+    span = max(max(lens) + L, L)
+    W = -(-span // page_tokens) + 1
+    pool_pages = 1 + b * W
+    perm = torch.randperm(pool_pages - 1, generator=gen) + 1
+    bt = torch.zeros((b, W), dtype=torch.int32)
+    q_pos = torch.zeros((b, L), dtype=torch.int32)
+    live = 0
+    for r, n in enumerate(lens):
+        q_pos[r] = max(n, 0) + torch.arange(L)
+        used = -(-(max(n, 0) + L) // page_tokens)
+        live += used
+        if n >= 0:
+            bt[r, :used] = perm[r * W:r * W + used]
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to(dtype).cuda()
+
+    return (rand(b, L, h, d), rand(pool_pages, page_tokens, kvh, d),
+            rand(pool_pages, page_tokens, kvh, d), bt.cuda(), q_pos.cuda(),
+            live)
+
+
+def paged_bound_ms(b, L, h, kvh, d, page_tokens, live_pages, dtype,
+                   q_pos) -> tuple[float, str]:
+    """(least ms, what bounds it) of one paged read: each live K/V page
+    read once, q read and out written once, over HBM; 4·d FLOP (QK^T and
+    PV) per query and visible key over the card's peak for the type."""
+    import torch
+
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes = esize * (2 * live_pages * page_tokens * kvh * d
+                      + 2 * b * L * h * d) + 4 * q_pos.numel()
+    visible = float((q_pos.double() + 1).sum().item()) * h
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4.0 * d * visible / PEAK_OPS_PER_S[str(dtype)]
+    return 1e3 * max(t_bytes, t_ops), \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_paged_kernel() -> tuple[dict, dict]:
+    """B2 against the plain paged read on the card (PAGED_CASES), two
+    launches bit-equal, CUDA-event times of B2, the plain version and
+    SDPA over K/V already gathered into contiguous rows (a yardstick
+    that skips the page indirection), beside B2's bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from k8s_device_plugin_tpu_torch.ops import paged_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(5)
+    cases, worst = [], 0.0
+    for name, b, L, h, kvh, d, page_tokens, lens, dt in PAGED_CASES:
+        dtype = getattr(torch, dt)
+        q, kp, vp, bt, q_pos, live = paged_case_inputs(
+            b, L, h, kvh, d, page_tokens, lens, dtype, gen)
+        args = (q, kp, vp, bt, q_pos)
+        out = pa.paged_attention_cuda(*args)
+        again = pa.paged_attention_cuda(*args)
+        torch.cuda.synchronize()
+        want = pa.paged_attention_reference(*args)
+        err = (out.float() - want.float()).abs().max().item()
+        if not torch.isfinite(out).all() or err > PAGED_TOL[dt]:
+            raise AssertionError(f"paged {name}: |B2 - plain| {err:.3g} "
+                                 f"over tolerance {PAGED_TOL[dt]}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"paged {name}: two launches differ")
+        worst = max(worst, err)
+        # The yardstick: SDPA over each row's gathered [W·P] keys with the
+        # position mask, q heads over expanded kv heads.
+        span = bt.shape[1] * page_tokens
+        kc = kp[bt.long()].reshape(b, span, kvh, d).transpose(1, 2)
+        vc = vp[bt.long()].reshape(b, span, kvh, d).transpose(1, 2)
+        kc = kc.repeat_interleave(h // kvh, 1).contiguous()
+        vc = vc.repeat_interleave(h // kvh, 1).contiguous()
+        qs = q.transpose(1, 2).contiguous()
+        mask = (torch.arange(span, device="cuda")[None, None, :]
+                <= q_pos[:, :, None])[:, None]
+        row = {
+            "case": name, "shape": [b, L, h, kvh, d], "page_tokens":
+            page_tokens, "lens": list(lens), "dtype": dt,
+            "max_abs_err": err, "tol": PAGED_TOL[dt],
+            "bit_equal_launches": True, "live_pages": live,
+            "ms": cuda_ms(lambda: pa.paged_attention_cuda(*args)),
+            "host_ms": host_ms(lambda: pa.paged_attention_cuda(*args)),
+            "plain_ms": cuda_ms(
+                lambda: pa.paged_attention_reference(*args), iters=5),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, kc, vc, attn_mask=mask)),
+        }
+        row["bound_ms"], row["bound_by"] = paged_bound_ms(
+            b, L, h, kvh, d, page_tokens, live, dtype, q_pos)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        cases.append(row)
+        del args, q, kp, vp, kc, vc, qs, out, again, want
+    torch.cuda.empty_cache()
+    main, chunk = cases[0], cases[1]
+    summary = {
+        "name": pa.PAGED_ATTN.name, "route": "cuda",
+        "source": pa.PAGED_ATTN.source, "replaces": pa.PAGED_ATTN.replaces,
+        "max_abs_err": worst, "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "library": "scaled_dot_product_attention over pre-gathered K/V "
+                   "(a yardstick: it skips the page indirection)",
+        "timed_case": main["case"], "host_ms": main["host_ms"],
+        "chunk_case": {k: chunk[k] for k in (
+            "case", "ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_share")},
+    }
+    return {"phase": "kernel_paged", "ok": True, "cases": cases}, summary
 
 
 @contextlib.contextmanager
@@ -537,8 +723,10 @@ def _device_events(prof):
 def phase_profile() -> dict:
     """Device time of one admission prefill ([4 rows, 1024 tokens]) and
     one 16-token decode segment over 4 rows at the serving default
-    (bf16), under torch.profiler: busy time, idle share of the wall
-    time, the largest kernels and the flash kernel's share."""
+    (bf16, rows KV), and of one paged prefill chunk and one paged decode
+    segment at the same width, under torch.profiler: busy time, idle
+    share of the wall time, the largest kernels and the flash (B1) and
+    paged (B2) kernels' shares."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -562,11 +750,35 @@ def phase_profile() -> dict:
     def decode():
         return srv.decode_segment(pool, tok, gen, temp, topk, seg)
 
+    # The paged programs at the same width: each row owns 64 pages of 16
+    # (its whole 1024-token table); a 64-token chunk at positions
+    # 960..1023, and a 16-step segment from position 1000.
+    page_tokens, width = 16, lb // 16
+    ppool = srv.make_paged_pool(rows * width + 1, page_tokens)
+    bt = np.arange(1, rows * width + 1, dtype=np.int64).reshape(rows, width)
+    ones, zeros_i = np.ones(rows, np.int64), np.zeros(rows, np.int64)
+
+    def paged_chunk():
+        return srv.paged_prefill_chunk(
+            ppool, np.ones((rows, 64), np.int64), bt, 960 * ones,
+            63 * ones, gen, temp, zeros_i)
+
+    def paged_decode():
+        return srv.paged_decode_segment(ppool, bt, tok, 1000 * ones, gen,
+                                        temp, topk, seg)
+
     decode()
+    paged_chunk()
+    paged_decode()
     torch.cuda.synchronize()
     res = {"phase": "profile", "rows": rows, "prompt_tokens": lb,
-           "segment": seg}
-    for name, fn in (("prefill", prefill), ("decode_segment", decode)):
+           "segment": seg, "paged": {"page_tokens": page_tokens,
+                                     "table_width": width,
+                                     "chunk_positions": [960, 1023],
+                                     "decode_from": 1000}}
+    for name, fn in (("prefill", prefill), ("decode_segment", decode),
+                     ("paged_prefill_chunk", paged_chunk),
+                     ("paged_decode_segment", paged_decode)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -577,15 +789,17 @@ def phase_profile() -> dict:
         events = _device_events(prof)
         busy = sum(ms for _, ms, _ in events)
         flash = sum(ms for k, ms, _ in events if "flash_fwd" in k)
+        paged = sum(ms for k, ms, _ in events if "paged_attn" in k)
         res[name] = {
             "wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall_ms if busy else None,
-            "flash_fwd_ms": flash, "kernels": len(events),
+            "flash_fwd_ms": flash, "paged_attn_ms": paged,
+            "kernels": len(events),
             "launches": sum(n for _, _, n in events),
             "top": [[k[:80], ms, n] for k, ms, n in events[:6]],
         }
     res["ok"] = True
-    del srv, pool
+    del srv, pool, ppool
     torch.cuda.empty_cache()
     return res
 
@@ -730,6 +944,185 @@ def phase_serve(counters) -> dict:
         "admission_prefills": prefills, "launches": launches,
         "drained": True,
     }
+
+
+def _metric_labeled(text: str, family: str, label: str) -> float:
+    """Sum of ``family``'s samples whose labels carry ``label`` (such as
+    ``fn="paged_prefill"``)."""
+    total = 0.0
+    for ln in text.splitlines():
+        if ln.startswith(family + "{") and label in ln.split("}")[0]:
+            total += float(ln.rsplit(" ", 1)[1])
+    return total
+
+
+# The paged daemon's traffic: five prompts of mixed lengths; the last
+# shares the first's page-aligned 320-byte prefix (20 pages of 16) and is
+# sent once the first has its first token, so its prefix is published.
+PAGED_PREFIX = ("the quick brown fox jumps over the lazy dog " * 8)[:320]
+PAGED_PROMPTS = (
+    PAGED_PREFIX + "and then it sat down in the sun",
+    ("pack my box with five dozen liquor jugs " * 30)[:700],
+    "hello there",
+    ("sphinx of black quartz judge my vow " * 30)[:1000],
+    PAGED_PREFIX + "but the dog did not wake up at all",
+)
+
+
+def phase_serve_paged(counters) -> dict:
+    """The daemon in-process at its default (paged KV, full-width config,
+    bf16, --max-batch 4), warmed up: concurrent completions, a prefix
+    hit, copy-on-extend of shared tail pages, and B2 launched exactly
+    layers x (prefill chunks + decode steps) over this traffic, B1
+    never."""
+    from k8s_device_plugin_tpu_torch.models import serve_http
+
+    ready = threading.Event()
+    handle = {}
+
+    def on_ready(httpd, batcher):
+        handle["httpd"], handle["batcher"] = httpd, batcher
+        ready.set()
+
+    rc = {}
+    daemon = threading.Thread(
+        target=lambda: rc.setdefault("rc", serve_http.main(
+            ["--port", "0", "--max-batch", "4"], on_ready=on_ready)),
+        name="llm-serve-paged-main", daemon=True,
+    )
+    t_start = time.perf_counter()
+    daemon.start()
+    if not ready.wait(600):
+        raise AssertionError("serve_paged: daemon not ready in 600 s")
+    startup_s = time.perf_counter() - t_start
+    httpd, batcher = handle["httpd"], handle["batcher"]
+    port = httpd.server_address[1]
+    try:
+        if batcher.kv_mode != "paged":
+            raise AssertionError(f"serve_paged: default KV layout is "
+                                 f"{batcher.kv_mode}")
+        _, before = _get(port, "/metrics")
+        for c in counters:
+            c.launches = 0
+        results = [None] * len(PAGED_PROMPTS)
+        published = threading.Event()
+
+        def one(i):
+            body = {"prompt": PAGED_PROMPTS[i],
+                    "max_tokens": SERVE_MAX_TOKENS, "logprobs": 1}
+            if i == 0:
+                body = {"prompt": PAGED_PROMPTS[i],
+                        "max_tokens": SERVE_MAX_TOKENS, "stream": True}
+            if i == len(PAGED_PROMPTS) - 1:
+                published.wait(300)
+            try:
+                if i == 0:
+                    results[i] = _stream_until_first(port, body, published)
+                else:
+                    results[i] = _post(port, body)
+            finally:
+                if i == 0:
+                    published.set()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(PAGED_PROMPTS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = {c.name: c.launches for c in counters}
+        _, after = _get(port, "/metrics")
+
+        def delta(family, label=None):
+            if label is not None:
+                return (_metric_labeled(after, family, label)
+                        - _metric_labeled(before, family, label))
+            return _metric_sum(after, family) - _metric_sum(before, family)
+
+        hits = delta("tpu_serve_kv_prefix_lookups_total", 'outcome="hit"')
+        copies = delta("tpu_serve_kv_page_copies_total")
+        reused = delta("tpu_serve_kv_prefix_tokens_reused_total")
+        chunks = delta("tpu_serve_phase_seconds_count", 'fn="paged_prefill"')
+        segments = delta("tpu_serve_phase_seconds_count",
+                         'fn="paged_segment"')
+        code, health = _get(port, "/healthz")
+        if code != 200 or json.loads(health).get("status") != "ok":
+            raise AssertionError(f"serve_paged: /healthz {code} {health}")
+        for fam in ("tpu_serve_kv_pages_in_use_count",
+                    "tpu_serve_kv_prefix_lookups_total",
+                    "tpu_serve_kv_page_copies_total",
+                    "tpu_serve_jit_compiles_total",
+                    "tpu_serve_ttft_seconds", "tpu_serve_requests_total"):
+            if fam not in after:
+                raise AssertionError(f"serve_paged: /metrics lacks {fam}")
+        completions, ttfts = [], []
+        for i, res in enumerate(results):
+            if res is None or res[0] != 200:
+                raise AssertionError(f"serve_paged: request {i} failed: "
+                                     f"{res}")
+            doc = res[1] if i == 0 else json.loads(res[1])
+            if i:
+                lps = doc["choices"][0]["logprobs"]["token_logprobs"]
+                if not lps or not all(v <= 0.0 and v == v for v in lps):
+                    raise AssertionError(f"serve_paged: bad logprobs "
+                                         f"{lps[:4]}")
+            if doc["usage"]["completion_tokens"] < 1:
+                raise AssertionError(f"serve_paged: request {i} decoded "
+                                     f"nothing")
+            completions.append(doc["usage"]["completion_tokens"])
+            ttfts.append(doc["ttft_seconds"])
+        layers = batcher.server.config.num_layers
+        want = layers * (chunks + segments * batcher.segment)
+        if hits < 1 or reused < len(PAGED_PREFIX) or copies < 1:
+            raise AssertionError(f"serve_paged: prefix hits {hits}, tokens "
+                                 f"reused {reused}, page copies {copies}")
+        if launches["paged_attn"] != want or launches["flash_fwd"] != 0:
+            raise AssertionError(
+                f"serve_paged: launches {launches}; want paged_attn = "
+                f"{layers} layers x ({chunks} chunks + {segments} segments "
+                f"x {batcher.segment} steps) = {want}, flash_fwd = 0")
+    finally:
+        httpd.shutdown()
+        daemon.join(timeout=120)
+    if daemon.is_alive() or rc.get("rc") != 0:
+        raise AssertionError(f"serve_paged: drain not clean (rc {rc})")
+    return {
+        "phase": "serve_paged", "ok": True, "startup_s": startup_s,
+        "prompt_lens": [len(p) for p in PAGED_PROMPTS],
+        "max_tokens": SERVE_MAX_TOKENS, "completion_tokens": completions,
+        "wall_s": wall, "ttft_s": ttfts,
+        "aggregate_tokens_per_s": sum(completions) / wall,
+        "prefix_hits": hits, "prefix_tokens_reused": reused,
+        "page_copies": copies, "prefill_chunks": chunks,
+        "decode_segments": segments, "segment_tokens": batcher.segment,
+        "page_tokens": batcher.kv_config.page_tokens,
+        "pool_pages": batcher.kv_config.pool_pages,
+        "launches": launches, "drained": True,
+    }
+
+
+def _stream_until_first(port: int, body: dict, first: threading.Event):
+    """POST a streamed completion; sets ``first`` at its first data frame
+    (its prompt's pages are then in the prefix index) and returns
+    (status, the final JSON frame)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/completions",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    frames = []
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        for raw in resp:
+            ln = raw.decode().strip()
+            if ln.startswith("data: "):
+                frames.append(ln[6:])
+                first.set()
+        status = resp.status
+    if len(frames) < 2 or frames[-1] != "[DONE]":
+        raise AssertionError("serve_paged: stream lacks [DONE]")
+    return status, json.loads(frames[-2])
 
 
 class _Records(logging.Handler):
@@ -927,7 +1320,7 @@ def main() -> int:
     # committed journal.
     os.environ.setdefault("TPU_CHIP_LOG",
                           os.path.join(HERE, "build", "chip_log.jsonl"))
-    from k8s_device_plugin_tpu_torch.ops import attention
+    from k8s_device_plugin_tpu_torch.ops import attention, paged_attention
 
     _jline({"phase": "env", "python": sys.version.split()[0],
             "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -937,11 +1330,17 @@ def main() -> int:
     _jline(line)
     line, bwd_summaries = phase_kernel_bwd()
     _jline(line)
+    line, paged_summary = phase_paged_kernel()
+    _jline(line)
     _jline(phase_model())
     _jline(phase_profile())
     serve = phase_serve([attention.FLASH_FWD])
     _jline(serve)
     summary["launches"] = serve["launches"]["flash_fwd"]
+    serve_paged = phase_serve_paged([attention.FLASH_FWD,
+                                     paged_attention.PAGED_ATTN])
+    _jline(serve_paged)
+    paged_summary["launches"] = serve_paged["launches"]["paged_attn"]
     train = phase_train()
     _jline(train)
     launches = train["benchmark"]["launches"]
@@ -950,7 +1349,7 @@ def main() -> int:
         s["launches"] = launches[s["name"]]
     _jline(phase_train_profile())
     print(smi_line(), flush=True)
-    _jline({"kernels": [summary, *bwd_summaries]})
+    _jline({"kernels": [summary, *bwd_summaries, paged_summary]})
     _jline({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

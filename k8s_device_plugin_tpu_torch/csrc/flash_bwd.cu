@@ -31,7 +31,7 @@
 //   broadcast of them (:366-367) was a Mosaic constraint.
 // - Any sequence length: tiles straddling the ragged edge or the diagonal
 //   mask inside (probabilities set to 0); rows past the end are not stored.
-// - d = 64 and d = 128 are compiled as they are; the wrapper zero-pads
+// - d = 64, 128 and 256 are compiled as they are; the wrapper zero-pads
 //   other head dims up to one of them (exact: zero lanes add nothing).
 //
 // What bounds them on an H100: at the flagship training shape
@@ -74,8 +74,10 @@
 //   (`flash_bwd_dkv_plan`) launches the lowest key tiles first, which own
 //   the most q steps under a causal mask.
 // - float32: FP32 FMA on the CUDA cores (tensor cores would be TF32), 256
-//   threads each owning a 4x4 micro-tile of the 64x64 score tile, dS (and
-//   P) passed through shared memory to the accumulating products.
+//   threads each owning a 4x4 micro-tile of the 64x64 score tile (2x2 of
+//   32x32 at d = 256, for shared memory), dS (and P) passed through shared
+//   memory to the accumulating products. Masked probabilities are set to 0
+//   directly, which is what exp(-1e30 - LSE) gives the reference.
 // Times against the bound are in PERF.md.
 
 #include "hopper.cuh"
@@ -83,11 +85,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-// Rows a float32 block owns: q rows (B3), keys (B4). Masked probabilities
-// are set to 0 directly, which is what exp(-1e30 - LSE) gives the
-// reference.
-constexpr int kBlk = 64;
 
 // ---------------------------------------------------------------------------
 // B3, bfloat16: TMA + wgmma, warp-specialised
@@ -131,9 +128,12 @@ struct Plan {
 // accumulator is half as large and a 128-key stage fits, and runs faster
 // than a 64-key one. Stages: five at d = 128 (230,488 bytes) ran faster
 // than three or four; at d = 64 three to six ran alike (ops/tune_dq.py,
-// PERF.md).
+// PERF.md). At d = 256 the accumulator is 128 registers and Q + dO take
+// 128 KiB: 32-key stages (S and dP 16 fp32 each, dS 8) in a ring of three
+// (230,456 bytes).
 template <int D>
-using Build = Plan<D, D == 64 ? 128 : 64, D == 64 ? 4 : 5>;
+using Build = Plan<D, D == 64 ? 128 : D == 128 ? 64 : 32,
+                   D == 64 ? 4 : D == 128 ? 5 : 3>;
 
 template <int D, int BK, int STAGES, bool CAUSAL>
 __global__ void __maxnreg__(kEntryRegs)
@@ -297,8 +297,7 @@ bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma_rs<D, 1>(acc, da[kk],
-                         desc_sw128(ks + kk * 2048, BK * 128, 1024), 1);
+          wgmma_rs_mn<D>(acc, da[kk], ks + kk * 2048, BK * 128);
         wg_commit();
         wg_wait<0>();
         fence_regs(acc);
@@ -365,17 +364,14 @@ namespace dkv {
 using namespace hopper;
 
 constexpr int kTileK = 64 * kConsumers;  // keys per block
-// q rows per step. 64 keeps a consumer's dK and dV accumulators (2 x d/2
-// fp32) and its S^T and dP^T tiles (2 x 32 fp32) within the consumers'
-// 240 registers at d = 128 without spills; 32-row steps (narrower wgmma)
-// ran slower on the card.
-constexpr int kStepQ = 64;
 
 // Shared-memory plan for q steps of BQ rows (byte offsets; operand tiles
 // 1024-byte aligned). `flash_bwd_dkv_plan` in ops/attention.py states
 // the same numbers and the entry point refuses a plan that disagrees.
 template <int D, int BQ>
 struct Plan {
+  // Q/dO stages as fit beside K and V: 4 / 3 / 3 at d = 64 / 128 / 256
+  // (231,224 bytes at d = 256 with 32-row steps).
   static constexpr int kStages = D == 64 ? 4 : 3;
   static constexpr int kKBytes = kTileK * D * 2;  // K (or V) of the block
   static constexpr int kQBytes = BQ * D * 2;      // one Q (or dO) step
@@ -387,6 +383,22 @@ struct Plan {
   static constexpr int kBar = kRows + kStages * 2 * BQ * 4;
   // + barriers, + slack to align the dynamic window to 1024 bytes
   static constexpr int kSmem = 1024 + kBar + (2 * kStages + 1) * 8;
+};
+
+// The build's q step and output split at each head dim. A 64-row step
+// keeps a consumer's dK and dV accumulators (2 x d/2 fp32) and its S^T
+// and dP^T tiles (2 x 32 fp32) within the consumers' 240 registers at
+// d = 128 without spills; 32-row steps (narrower wgmma) ran slower on the
+// card. At d = 256 the two accumulators alone would be 256 registers, so
+// each schedule row runs as two blocks, one per 128-column half of dK and
+// dV: each recomputes S^T and dP^T over the full d and accumulates its
+// half (64 + 64 registers), with 32-row steps for the 128 KiB of K and V.
+// One block still owns each output element: no atomics.
+template <int D>
+struct Build {
+  static constexpr int kStepQ = D == 256 ? 32 : 64;
+  static constexpr int kCols = D == 256 ? 128 : D;  // dK/dV columns a block
+  static constexpr int kSplits = D / kCols;         // blocks a schedule row
 };
 
 template <int D, int BQ, bool CAUSAL>
@@ -401,6 +413,7 @@ bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                     int heads, int kv_heads, int seq_q, int seq_k,
                     float scale) {
   using P = Plan<D, BQ>;
+  constexpr int DC = Build<D>::kCols;
   extern __shared__ __align__(1024) uint8_t tma_smem[];
   uint8_t* smem = tma_smem + ((1024 - (smem_u32(tma_smem) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::kBar);
@@ -408,8 +421,11 @@ bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* kvbar = empty + P::kStages;
 
   // This block's work, from the launch plan: (b*kv_heads, key tile, first q
-  // step, end q step), the steps taken for each of the group's q heads.
-  const int4 work = __ldg(schedule + blockIdx.x);
+  // step, end q step), the steps taken for each of the group's q heads;
+  // the schedule row's kSplits blocks are neighbours, each owning the dK /
+  // dV columns c0 .. c0 + DC - 1.
+  const int4 work = __ldg(schedule + blockIdx.x / Build<D>::kSplits);
+  const int c0 = (blockIdx.x % Build<D>::kSplits) * DC;
   const int bkv = work.x;
   const int k0 = work.y * kTileK;
   const int b = bkv / kv_heads;
@@ -493,9 +509,9 @@ bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     const int key_hi = key_lo + 8;
     const int cp = 2 * (lane % 4);
     const float sl2 = scale * kLog2e;
-    float dka[D / 2], dva[D / 2];
+    float dka[DC / 2], dva[DC / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    for (int i = 0; i < DC / 2; ++i) dka[i] = dva[i] = 0.f;
     const uint8_t* ks = smem + P::kK + wg * 64 * 128;
     const uint8_t* vs = smem + P::kV + wg * 64 * 128;
 
@@ -564,19 +580,19 @@ bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
             }
           }
 
-          // dV += P^T dO and dK += dS^T Q: A from registers, B MN-major.
+          // dV += P^T dO and dK += dS^T Q over this block's columns: A
+          // from registers, B MN-major from the boxes of columns c0 on.
           uint32_t pa[BQ / 16][4], da[BQ / 16][4];
           acc_to_a<BQ>(pa, s);
           acc_to_a<BQ>(da, dp);
+          const int cbox = (c0 / 64) * BQ * 128;
           wg_fence();
 #pragma unroll
           for (int kq = 0; kq < BQ / 16; ++kq)
-            wgmma_rs<D, 1>(dva, pa[kq],
-                           desc_sw128(dos + kq * 2048, BQ * 128, 1024), 1);
+            wgmma_rs_mn<DC>(dva, pa[kq], dos + cbox + kq * 2048, BQ * 128);
 #pragma unroll
           for (int kq = 0; kq < BQ / 16; ++kq)
-            wgmma_rs<D, 1>(dka, da[kq],
-                           desc_sw128(qs + kq * 2048, BQ * 128, 1024), 1);
+            wgmma_rs_mn<DC>(dka, da[kq], qs + cbox + kq * 2048, BQ * 128);
           wg_commit();
           wg_wait<0>();
           fence_regs(dva);
@@ -593,10 +609,10 @@ bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
     const size_t base = (size_t)bkv * seq_k;
-    bf16* dk_lo = dk + (base + key_lo) * D;
-    bf16* dv_lo = dv + (base + key_lo) * D;
+    bf16* dk_lo = dk + (base + key_lo) * D + c0;
+    bf16* dv_lo = dv + (base + key_lo) * D + c0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DC / 8; ++j) {
       const int col = 8 * j + cp;
       if (key_lo < seq_k) {
         *reinterpret_cast<__nv_bfloat162*>(dk_lo + col) = __floats2bfloat162_rn(
@@ -636,7 +652,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (rc != cudaSuccess) return (int)rc;
-  kernel<<<plan[4], kThreads, P::kSmem, stream>>>(
+  kernel<<<plan[4] * Build<D>::kSplits, kThreads, P::kSmem, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), reinterpret_cast<const int4*>(schedule), heads,
       kv_heads, seq_q, seq_k, scale);
@@ -649,19 +665,29 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // float32: FP32 FMA on the CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kFmaThreads = 256;  // 16 x 16 threads, 4 x 4 micro-tiles
+constexpr int kFmaThreads = 256;  // 16 x 16 threads
 
-// Rows [row0, row0 + 64) of a [rows, D] fp32 matrix into shared memory:
+// Rows of a float32 tile (q rows of B3, keys of B4, and the other side's
+// step): 64, and 32 at d = 256, where 64-row tiles would need 345,344
+// (B3) and 410,880 (B4) bytes of shared memory. Each thread owns an
+// M x M micro-tile of the BLK x BLK score tile (M = BLK / 16) and M rows
+// of a d/16-wide slice of the accumulators.
+template <int D>
+struct F32Tile {
+  static constexpr int kBlk = D == 256 ? 32 : 64;
+};
+
+// Rows [row0, row0 + BLK) of a [rows, D] fp32 matrix into shared memory:
 // row-major with stride D + 1 (`rm`, scalar reads by row), transposed
-// [D][64] (`tr`, float4 reads along rows) and/or row-major with stride D
+// [D][BLK] (`tr`, vector reads along rows) and/or row-major with stride D
 // (`rv`, float4 reads along d); null destinations are skipped. Zeros past
 // `rows`.
-template <int D>
+template <int D, int BLK>
 __device__ __forceinline__ void load_f32(const float* src, int row0, int rows,
                                          float* rm, float* tr, float* rv) {
-  for (int idx = threadIdx.x; idx < kBlk * (D / 4); idx += kFmaThreads) {
-    const int r = idx % kBlk;  // row fastest: conflict-free transposed stores
-    const int c = (idx / kBlk) * 4;
+  for (int idx = threadIdx.x; idx < BLK * (D / 4); idx += kFmaThreads) {
+    const int r = idx % BLK;  // row fastest: conflict-free transposed stores
+    const int c = (idx / BLK) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < rows)
       x = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
@@ -673,66 +699,84 @@ __device__ __forceinline__ void load_f32(const float* src, int row0, int rows,
       p[3] = x.w;
     }
     if (tr) {
-      tr[(c + 0) * kBlk + r] = x.x;
-      tr[(c + 1) * kBlk + r] = x.y;
-      tr[(c + 2) * kBlk + r] = x.z;
-      tr[(c + 3) * kBlk + r] = x.w;
+      tr[(c + 0) * BLK + r] = x.x;
+      tr[(c + 1) * BLK + r] = x.y;
+      tr[(c + 2) * BLK + r] = x.z;
+      tr[(c + 3) * BLK + r] = x.w;
     }
     if (rv) *reinterpret_cast<float4*>(rv + r * D + c) = x;
   }
 }
 
-// Two 64 x 64 products over d at once for this thread's 4 x 4 micro-tile:
-// x[i][j] += A1[row i][d] B1[col j][d], y[i][j] += A2[row i][d] B2[col j][d],
-// with A row-major (stride D + 1) and B transposed ([D][64]).
-template <int D>
-__device__ __forceinline__ void two_products(float (&x)[4][4],
-                                             float (&y)[4][4], const float* a1,
-                                             const float* b1, const float* a2,
-                                             const float* b2, int ty, int tx) {
+// M consecutive floats of shared memory (M = 4 or 2), as one vector read.
+template <int M>
+__device__ __forceinline__ void load_m(float (&out)[M], const float* p) {
+  if constexpr (M == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
+  } else {
+    static_assert(M == 2, "micro-tiles of 4 or 2");
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+  }
+}
+
+// Two BLK x BLK products over d at once for this thread's M x M
+// micro-tile: x[i][j] += A1[row i][d] B1[col j][d], y[i][j] += A2[row i][d]
+// B2[col j][d], with A row-major (stride D + 1) and B transposed ([D][BLK]).
+template <int D, int BLK>
+__device__ __forceinline__ void two_products(float (&x)[BLK / 16][BLK / 16],
+                                             float (&y)[BLK / 16][BLK / 16],
+                                             const float* a1, const float* b1,
+                                             const float* a2, const float* b2,
+                                             int ty, int tx) {
+  constexpr int M = BLK / 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < M; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) x[i][j] = y[i][j] = 0.f;
+    for (int j = 0; j < M; ++j) x[i][j] = y[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float u[4], w[4];
+    float u[M], w[M], pv[M], ov[M];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      u[i] = a1[(ty * 4 + i) * (D + 1) + d];
-      w[i] = a2[(ty * 4 + i) * (D + 1) + d];
+    for (int i = 0; i < M; ++i) {
+      u[i] = a1[(ty * M + i) * (D + 1) + d];
+      w[i] = a2[(ty * M + i) * (D + 1) + d];
     }
-    const float4 p = *reinterpret_cast<const float4*>(b1 + d * kBlk + tx * 4);
-    const float4 o = *reinterpret_cast<const float4*>(b2 + d * kBlk + tx * 4);
-    const float pv[4] = {p.x, p.y, p.z, p.w};
-    const float ov[4] = {o.x, o.y, o.z, o.w};
+    load_m<M>(pv, b1 + d * BLK + tx * M);
+    load_m<M>(ov, b2 + d * BLK + tx * M);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < M; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < M; ++j) {
         x[i][j] = fmaf(u[i], pv[j], x[i][j]);
         y[i][j] = fmaf(w[i], ov[j], y[i][j]);
       }
   }
 }
 
-// acc[i][gc*4 + j] += sum_kk T[row i][kk] M[kk][gc*64 + tx*4 + j], T a
-// [64][65] shared tile, M row-major [64][D].
-template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[4][D / 16],
+// acc[i][gc*4 + j] += sum_kk T[row i][kk] Mx[kk][gc*64 + tx*4 + j], T a
+// [BLK][BLK+1] shared tile, Mx row-major [BLK][D].
+template <int D, int BLK>
+__device__ __forceinline__ void accumulate(float (&acc)[BLK / 16][D / 16],
                                            const float* tile, const float* m,
                                            int ty, int tx) {
+  constexpr int M = BLK / 16;
 #pragma unroll 4
-  for (int kk = 0; kk < kBlk; ++kk) {
-    float a[4];
+  for (int kk = 0; kk < BLK; ++kk) {
+    float a[M];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = tile[(ty * 4 + i) * (kBlk + 1) + kk];
+    for (int i = 0; i < M; ++i) a[i] = tile[(ty * M + i) * (BLK + 1) + kk];
 #pragma unroll
     for (int gc = 0; gc < D / 64; ++gc) {
       const float4 v =
           *reinterpret_cast<const float4*>(m + kk * D + gc * 64 + tx * 4);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < M; ++i) {
         acc[i][gc * 4 + 0] = fmaf(a[i], v.x, acc[i][gc * 4 + 0]);
         acc[i][gc * 4 + 1] = fmaf(a[i], v.y, acc[i][gc * 4 + 1]);
         acc[i][gc * 4 + 2] = fmaf(a[i], v.z, acc[i][gc * 4 + 2]);
@@ -742,13 +786,15 @@ __device__ __forceinline__ void accumulate(float (&acc)[4][D / 16],
   }
 }
 
-template <int D>
-__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[4][D / 16],
+template <int D, int BLK>
+__device__ __forceinline__ void store_rows(float* dst,
+                                           const float (&acc)[BLK / 16][D / 16],
                                            float mul, int row0, int rows,
                                            int ty, int tx) {
+  constexpr int M = BLK / 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
+  for (int i = 0; i < M; ++i) {
+    const int r = row0 + ty * M + i;
     if (r >= rows) continue;
 #pragma unroll
     for (int gc = 0; gc < D / 64; ++gc)
@@ -760,12 +806,14 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[4][D /
 
 template <int D>
 constexpr size_t dq_f32_smem() {
-  // Q, dO [64][D+1]; K^T, V^T [D][64]; K [64][D]; dS [64][65]; LSE, delta
-  return sizeof(float) * (2 * kBlk * (D + 1) + 2 * D * kBlk + kBlk * D +
-                          kBlk * (kBlk + 1) + 2 * kBlk);
+  // Q, dO [BLK][D+1]; K^T, V^T [D][BLK]; K [BLK][D]; dS [BLK][BLK+1];
+  // LSE, delta
+  constexpr int B = F32Tile<D>::kBlk;
+  return sizeof(float) * (2 * B * (D + 1) + 2 * D * B + B * D +
+                          B * (B + 1) + 2 * B);
 }
 
-// B3, float32: one block per (batch*head, 64 q rows).
+// B3, float32: one block per (batch*head, BLK q rows).
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kFmaThreads)
 bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -773,77 +821,83 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, float* __restrict__ dq,
                   int heads, int kv_heads, int seq_q, int seq_k, float scale) {
+  constexpr int BLK = F32Tile<D>::kBlk;
+  constexpr int M = BLK / 16;
   extern __shared__ __align__(16) float fsmem[];
-  float* qs = fsmem;                      // [64][D+1]
-  float* dos = qs + kBlk * (D + 1);       // [64][D+1]
-  float* kt = dos + kBlk * (D + 1);       // [D][64]
-  float* vt = kt + D * kBlk;              // [D][64]
-  float* kr = vt + D * kBlk;              // [64][D]
-  float* dss = kr + kBlk * D;             // [64][65]
-  float* lse_s = dss + kBlk * (kBlk + 1);
-  float* delta_s = lse_s + kBlk;
+  float* qs = fsmem;                    // [BLK][D+1]
+  float* dos = qs + BLK * (D + 1);      // [BLK][D+1]
+  float* kt = dos + BLK * (D + 1);      // [D][BLK]
+  float* vt = kt + D * BLK;             // [D][BLK]
+  float* kr = vt + D * BLK;             // [BLK][D]
+  float* dss = kr + BLK * D;            // [BLK][BLK+1]
+  float* lse_s = dss + BLK * (BLK + 1);
+  float* delta_s = lse_s + BLK;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;  // key columns (S), d columns (dQ)
-  const int ty = tid >> 4;  // q rows ty*4 .. ty*4+3
-  const int q0 = blockIdx.x * kBlk;
+  const int ty = tid >> 4;  // q rows ty*M .. ty*M+M-1
+  const int q0 = blockIdx.x * BLK;
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const int h = bh - b * heads;
   const int kvh = h / (heads / kv_heads);
   const size_t kv_off = (size_t)(b * kv_heads + kvh) * seq_k * D;
 
-  load_f32<D>(q + (size_t)bh * seq_q * D, q0, seq_q, qs, nullptr, nullptr);
-  load_f32<D>(dout + (size_t)bh * seq_q * D, q0, seq_q, dos, nullptr, nullptr);
-  if (tid < kBlk) {
+  load_f32<D, BLK>(q + (size_t)bh * seq_q * D, q0, seq_q, qs, nullptr,
+                   nullptr);
+  load_f32<D, BLK>(dout + (size_t)bh * seq_q * D, q0, seq_q, dos, nullptr,
+                   nullptr);
+  if (tid < BLK) {
     const int row = q0 + tid;
     lse_s[tid] = row < seq_q ? lse[(size_t)bh * seq_q + row] : 0.f;
     delta_s[tid] = row < seq_q ? delta[(size_t)bh * seq_q + row] : 0.f;
   }
 
-  float acc[4][D / 16];
+  float acc[M][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < M; ++i)
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
 
-  const int k_end = CAUSAL ? min(seq_k, q0 + kBlk) : seq_k;
-  for (int k0 = 0; k0 < k_end; k0 += kBlk) {
+  const int k_end = CAUSAL ? min(seq_k, q0 + BLK) : seq_k;
+  for (int k0 = 0; k0 < k_end; k0 += BLK) {
     __syncthreads();  // the previous tile's readers are done
-    load_f32<D>(k + kv_off, k0, seq_k, nullptr, kt, kr);
-    load_f32<D>(v + kv_off, k0, seq_k, nullptr, vt, nullptr);
+    load_f32<D, BLK>(k + kv_off, k0, seq_k, nullptr, kt, kr);
+    load_f32<D, BLK>(v + kv_off, k0, seq_k, nullptr, vt, nullptr);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
-    two_products<D>(s, dp, qs, kt, dos, vt, ty, tx);
+    float s[M][M], dp[M][M];
+    two_products<D, BLK>(s, dp, qs, kt, dos, vt, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
+    for (int i = 0; i < M; ++i) {
+      const int qi = q0 + ty * M + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx * 4 + j;
+      for (int j = 0; j < M; ++j) {
+        const int kj = k0 + tx * M + j;
         const bool keep = kj < seq_k && (!CAUSAL || kj <= qi);
         const float p =
-            keep ? expf(s[i][j] * scale - lse_s[ty * 4 + i]) : 0.f;
-        dss[(ty * 4 + i) * (kBlk + 1) + tx * 4 + j] =
-            p * (dp[i][j] - delta_s[ty * 4 + i]);
+            keep ? expf(s[i][j] * scale - lse_s[ty * M + i]) : 0.f;
+        dss[(ty * M + i) * (BLK + 1) + tx * M + j] =
+            p * (dp[i][j] - delta_s[ty * M + i]);
       }
     }
     __syncthreads();
-    accumulate<D>(acc, dss, kr, ty, tx);
+    accumulate<D, BLK>(acc, dss, kr, ty, tx);
   }
-  store_rows<D>(dq + (size_t)bh * seq_q * D, acc, scale, q0, seq_q, ty, tx);
+  store_rows<D, BLK>(dq + (size_t)bh * seq_q * D, acc, scale, q0, seq_q, ty,
+                     tx);
 }
 
 template <int D>
 constexpr size_t dkv_f32_smem() {
-  // K, V [64][D+1]; Q^T, dO^T [D][64]; Q, dO [64][D]; P / dS [64][65];
-  // LSE, delta
-  return sizeof(float) * (2 * kBlk * (D + 1) + 2 * D * kBlk + 2 * kBlk * D +
-                          kBlk * (kBlk + 1) + 2 * kBlk);
+  // K, V [BLK][D+1]; Q^T, dO^T [D][BLK]; Q, dO [BLK][D]; P / dS
+  // [BLK][BLK+1]; LSE, delta
+  constexpr int B = F32Tile<D>::kBlk;
+  return sizeof(float) * (2 * B * (D + 1) + 2 * D * B + 2 * B * D +
+                          B * (B + 1) + 2 * B);
 }
 
-// B4, float32: one block per (batch, kv head, 64 keys).
+// B4, float32: one block per (batch, kv head, BLK keys).
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kFmaThreads)
 bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -852,33 +906,35 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ delta, float* __restrict__ dk,
                    float* __restrict__ dv, int heads, int kv_heads, int seq_q,
                    int seq_k, float scale) {
+  constexpr int BLK = F32Tile<D>::kBlk;
+  constexpr int M = BLK / 16;
   extern __shared__ __align__(16) float fsmem[];
-  float* ks = fsmem;                 // [64][D+1]
-  float* vs = ks + kBlk * (D + 1);   // [64][D+1]
-  float* qt = vs + kBlk * (D + 1);   // [D][64]
-  float* dot = qt + D * kBlk;        // [D][64]
-  float* qr = dot + D * kBlk;        // [64][D]
-  float* dor = qr + kBlk * D;        // [64][D]
-  float* buf = dor + kBlk * D;       // [64][65]: P^T, then dS^T
-  float* lse_s = buf + kBlk * (kBlk + 1);
-  float* delta_s = lse_s + kBlk;
+  float* ks = fsmem;                // [BLK][D+1]
+  float* vs = ks + BLK * (D + 1);   // [BLK][D+1]
+  float* qt = vs + BLK * (D + 1);   // [D][BLK]
+  float* dot = qt + D * BLK;        // [D][BLK]
+  float* qr = dot + D * BLK;        // [BLK][D]
+  float* dor = qr + BLK * D;        // [BLK][D]
+  float* buf = dor + BLK * D;       // [BLK][BLK+1]: P^T, then dS^T
+  float* lse_s = buf + BLK * (BLK + 1);
+  float* delta_s = lse_s + BLK;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;  // q columns (S^T), d columns (dK, dV)
-  const int ty = tid >> 4;  // keys ty*4 .. ty*4+3
-  const int k0 = blockIdx.x * kBlk;
+  const int ty = tid >> 4;  // keys ty*M .. ty*M+M-1
+  const int k0 = blockIdx.x * BLK;
   const int bkv = blockIdx.y;
   const int b = bkv / kv_heads;
   const int kvh = bkv - b * kv_heads;
   const int n_rep = heads / kv_heads;
   const size_t kv_off = (size_t)bkv * seq_k * D;
 
-  load_f32<D>(k + kv_off, k0, seq_k, ks, nullptr, nullptr);
-  load_f32<D>(v + kv_off, k0, seq_k, vs, nullptr, nullptr);
+  load_f32<D, BLK>(k + kv_off, k0, seq_k, ks, nullptr, nullptr);
+  load_f32<D, BLK>(v + kv_off, k0, seq_k, vs, nullptr, nullptr);
 
-  float dka[4][D / 16], dva[4][D / 16];
+  float dka[M][D / 16], dva[M][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < M; ++i)
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) dka[i][c] = dva[i][c] = 0.f;
 
@@ -886,11 +942,11 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int bh = b * heads + kvh * n_rep + r;
     const float* qp = q + (size_t)bh * seq_q * D;
     const float* dop = dout + (size_t)bh * seq_q * D;
-    for (int q0 = CAUSAL ? k0 : 0; q0 < seq_q; q0 += kBlk) {
+    for (int q0 = CAUSAL ? k0 : 0; q0 < seq_q; q0 += BLK) {
       __syncthreads();  // the previous tile's readers are done
-      load_f32<D>(qp, q0, seq_q, nullptr, qt, qr);
-      load_f32<D>(dop, q0, seq_q, nullptr, dot, dor);
-      if (tid < kBlk) {
+      load_f32<D, BLK>(qp, q0, seq_q, nullptr, qt, qr);
+      load_f32<D, BLK>(dop, q0, seq_q, nullptr, dot, dor);
+      if (tid < BLK) {
         const int row = q0 + tid;
         lse_s[tid] = row < seq_q ? lse[(size_t)bh * seq_q + row] : 0.f;
         delta_s[tid] = row < seq_q ? delta[(size_t)bh * seq_q + row] : 0.f;
@@ -898,35 +954,35 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
 
       // S^T = K Q^T, dP^T = V dO^T
-      float s[4][4], dp[4][4];
-      two_products<D>(s, dp, ks, qt, vs, dot, ty, tx);
+      float s[M][M], dp[M][M];
+      two_products<D, BLK>(s, dp, ks, qt, vs, dot, ty, tx);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + ty * 4 + i;
+      for (int i = 0; i < M; ++i) {
+        const int key = k0 + ty * M + i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int qc = q0 + tx * 4 + j;
+        for (int j = 0; j < M; ++j) {
+          const int qc = q0 + tx * M + j;
           const bool keep = qc < seq_q && (!CAUSAL || key <= qc);
           const float p =
-              keep ? expf(s[i][j] * scale - lse_s[tx * 4 + j]) : 0.f;
-          buf[(ty * 4 + i) * (kBlk + 1) + tx * 4 + j] = p;
-          dp[i][j] = p * (dp[i][j] - delta_s[tx * 4 + j]);
+              keep ? expf(s[i][j] * scale - lse_s[tx * M + j]) : 0.f;
+          buf[(ty * M + i) * (BLK + 1) + tx * M + j] = p;
+          dp[i][j] = p * (dp[i][j] - delta_s[tx * M + j]);
         }
       }
       __syncthreads();
-      accumulate<D>(dva, buf, dor, ty, tx);  // dV += P^T dO
+      accumulate<D, BLK>(dva, buf, dor, ty, tx);  // dV += P^T dO
       __syncthreads();
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < M; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          buf[(ty * 4 + i) * (kBlk + 1) + tx * 4 + j] = dp[i][j];
+        for (int j = 0; j < M; ++j)
+          buf[(ty * M + i) * (BLK + 1) + tx * M + j] = dp[i][j];
       __syncthreads();
-      accumulate<D>(dka, buf, qr, ty, tx);  // dK += dS^T Q (scale below)
+      accumulate<D, BLK>(dka, buf, qr, ty, tx);  // dK += dS^T Q (scale below)
     }
   }
-  store_rows<D>(dk + kv_off, dka, scale, k0, seq_k, ty, tx);
-  store_rows<D>(dv + kv_off, dva, 1.f, k0, seq_k, ty, tx);
+  store_rows<D, BLK>(dk + kv_off, dka, scale, k0, seq_k, ty, tx);
+  store_rows<D, BLK>(dv + kv_off, dva, 1.f, k0, seq_k, ty, tx);
 }
 
 // ---------------------------------------------------------------------------
@@ -960,6 +1016,7 @@ int set_smem(Kernel kernel, size_t smem) {
 template <int D, bool CAUSAL>
 int launch_dq(int dtype, const Args& a) {
   if (dtype == 0) {
+    constexpr int kBlk = F32Tile<D>::kBlk;
     const dim3 grid((a.seq_q + kBlk - 1) / kBlk, a.batch * a.heads);
     auto kernel = bwd_dq_f32_kernel<D, CAUSAL>;
     int err;
@@ -981,6 +1038,7 @@ int launch_dq(int dtype, const Args& a) {
 template <int D, bool CAUSAL>
 int launch_dkv(int dtype, const Args& a) {
   if (dtype == 0) {
+    constexpr int kBlk = F32Tile<D>::kBlk;
     const dim3 grid((a.seq_k + kBlk - 1) / kBlk, a.batch * a.kv_heads);
     auto kernel = bwd_dkv_f32_kernel<D, CAUSAL>;
     int err;
@@ -993,9 +1051,9 @@ int launch_dkv(int dtype, const Args& a) {
     return (int)cudaGetLastError();
   }
   if (dtype != 1) return hopper::kErrUnsupported;
-  if (a.plan[0] != dkv::kTileK || a.plan[1] != dkv::kStepQ)
-    return hopper::kErrPlan;
-  return dkv::launch<D, dkv::kStepQ, CAUSAL>(
+  constexpr int BQ = dkv::Build<D>::kStepQ;
+  if (a.plan[0] != dkv::kTileK || a.plan[1] != BQ) return hopper::kErrPlan;
+  return dkv::launch<D, BQ, CAUSAL>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.batch, a.heads,
       a.kv_heads, a.seq_q, a.seq_k, a.plan, a.schedule, a.scale, a.stream);
 }
@@ -1014,7 +1072,10 @@ int dispatch(int which, int head_dim, int dtype, int causal, const Args& a) {
   if (head_dim == 128)
     return causal ? launch_one<128, true>(which, dtype, a)
                   : launch_one<128, false>(which, dtype, a);
-  return -1;
+  if (head_dim == 256)
+    return causal ? launch_one<256, true>(which, dtype, a)
+                  : launch_one<256, false>(which, dtype, a);
+  return hopper::kErrUnsupported;
 }
 
 }  // namespace

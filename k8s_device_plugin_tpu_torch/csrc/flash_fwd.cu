@@ -16,7 +16,7 @@
 //   index: tiles above it are never loaded.
 // - LSE is written as one fp32 per row, not a 128-lane broadcast (that
 //   layout was a Mosaic constraint), and the head dim is not padded to
-//   128: d = 64 and d = 128 are compiled as they are.
+//   128: d = 64, 128 and 256 are compiled as they are.
 // - Any sequence length: the ragged last tile is masked (q rows past the
 //   end are not stored, keys past the end are masked out).
 // - GQA without expanding K/V: q head h reads kv head h / (heads /
@@ -31,7 +31,7 @@
 // Two kernels, by input type:
 // - bfloat16, built for Hopper's tensor cores. A block owns 128 q rows and
 //   runs three warpgroups. One producer thread issues TMA loads (Q once,
-//   then K and V tiles of 128 keys into a ring of shared-memory stages,
+//   then K and V tiles of 128 keys, 64 at d = 256, into a ring of stages,
 //   completion on mbarriers); two consumer warpgroups of 64 q rows each
 //   compute, so copies overlap products. setmaxnreg moves registers from
 //   the producer to the consumers. S = Q K^T is a wgmma with both operands
@@ -49,7 +49,8 @@
 //   64x64 score tile, each thread a 4x4 micro-tile of scores and a
 //   4 x (d/16) slice of the accumulator; Q^T and K^T sit transposed in
 //   shared memory so the score loop reads float4 rows without bank
-//   conflicts.
+//   conflicts. At d = 256 its tiles take 214,016 bytes of shared memory,
+//   within the 232,448 a block may use.
 // Times against the bound are in PERF.md.
 
 #include "hopper.cuh"
@@ -69,7 +70,6 @@ constexpr float kNegInf = -1e30f;  // the reference's mask value
 
 constexpr int kConsumers = 2;            // consumer warpgroups, 64 rows each
 constexpr int kTileQ = 64 * kConsumers;  // q rows per block
-constexpr int kTileK = 128;              // keys per K/V stage
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -78,8 +78,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 // numbers and the entry point refuses a plan that disagrees.
 template <int D>
 struct FwdPlan {
-  // as many stages as fit beside Q: 148,552 / 230,456 bytes at d = 64 / 128
-  static constexpr int kStages = D == 64 ? 4 : 3;
+  // Keys per K/V stage: 128, and 64 at d = 256, where a consumer's O
+  // accumulator alone is 128 fp32 registers (64 rows x 256 over 128
+  // threads); 64 keys keep S (32) and P's bf16 operands (16) beside it
+  // within 240 registers.
+  static constexpr int kTileK = D == 256 ? 64 : 128;
+  // As many stages as fit beside Q: 148,552 / 230,456 / 197,672 bytes at
+  // d = 64 / 128 / 256.
+  static constexpr int kStages = D == 64 ? 4 : D == 128 ? 3 : 2;
   static constexpr int kQBytes = kTileQ * D * 2;
   static constexpr int kKVBytes = kTileK * D * 2;  // one K (or V) stage
   static constexpr int kQ = 0;
@@ -99,6 +105,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const int4* __restrict__ schedule, int heads,
                       int kv_heads, int seq_q, int seq_k, float scale) {
   using P = FwdPlan<D>;
+  constexpr int kTileK = P::kTileK;
   extern __shared__ __align__(1024) uint8_t tma_smem[];
   uint8_t* smem = tma_smem + ((1024 - (smem_u32(tma_smem) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::kBar);
@@ -253,8 +260,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kTileK / 16; ++kk)
-        wgmma_rs<D, 1>(acc, p[kk],
-                       desc_sw128(vs + kk * 2048, kTileK * 128, 1024), 1);
+        wgmma_rs_mn<D>(acc, p[kk], vs + kk * 2048, kTileK * 128);
       wg_commit();
       wg_wait<0>();
       fence_regs(acc);
@@ -521,14 +527,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 int seq_k, const int* plan, const int* schedule, float scale,
                 cudaStream_t stream) {
   using P = FwdPlan<D>;
-  if (plan[0] != kTileQ || plan[1] != kTileK || plan[2] != P::kStages ||
+  if (plan[0] != kTileQ || plan[1] != P::kTileK || plan[2] != P::kStages ||
       plan[3] != P::kSmem || plan[4] <= 0 || schedule == nullptr)
     return kErrPlan;
   CUtensorMap tq, tk, tv;
   int err;
   if ((err = make_map_bf16(&tq, q, D, seq_q, batch * heads, kTileQ)) ||
-      (err = make_map_bf16(&tk, k, D, seq_k, batch * kv_heads, kTileK)) ||
-      (err = make_map_bf16(&tv, v, D, seq_k, batch * kv_heads, kTileK)))
+      (err = make_map_bf16(&tk, k, D, seq_k, batch * kv_heads, P::kTileK)) ||
+      (err = make_map_bf16(&tv, v, D, seq_k, batch * kv_heads, P::kTileK)))
     return err;
   auto kernel = flash_fwd_bf16_kernel<D, CAUSAL>;
   cudaError_t rc = cudaFuncSetAttribute(
@@ -591,6 +597,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                           kv_heads, seq_q, seq_k, plan, schedule, scale, s);
   if (head_dim == 128)
     return launch_dim<128>(dtype, causal, q, k, v, o, lse, batch, heads,
+                           kv_heads, seq_q, seq_k, plan, schedule, scale, s);
+  if (head_dim == 256)
+    return launch_dim<256>(dtype, causal, q, k, v, o, lse, batch, heads,
                            kv_heads, seq_q, seq_k, plan, schedule, scale, s);
   return hopper::kErrUnsupported;
 }

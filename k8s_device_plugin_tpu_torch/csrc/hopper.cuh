@@ -5,8 +5,8 @@
 // Conventions the kernels rely on:
 // - Every bf16 operand tile is loaded by TMA as boxes of [rows][64] elements
 //   (128 bytes a row) with the 128-byte swizzle, one box after the other;
-//   a d = 128 tile is two boxes. Box bases are 1024-byte aligned, so the
-//   wgmma descriptors need no base offset.
+//   a d = 128 tile is two boxes, a d = 256 tile four. Box bases are
+//   1024-byte aligned, so the wgmma descriptors need no base offset.
 // - K-major operand (the reduction dim contiguous): rows in 8-row atoms of
 //   1024 bytes (SBO = 1024); a 16-element k-step inside a box is +32 bytes.
 // - MN-major operand (the output dim contiguous, "transposed B"): 8 k-rows
@@ -72,9 +72,9 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor [outer, rows, cols] (contiguous, cols = 64 or 128) read in
-// boxes of [1, box_rows, 64] with the 128-byte swizzle; out of bounds reads
-// zero.
+// A bf16 tensor [outer, rows, cols] (contiguous, cols = 64, 128 or 256)
+// read in boxes of [1, box_rows, 64] with the 128-byte swizzle; out of
+// bounds reads zero.
 inline int make_map_bf16(CUtensorMap* map, const void* base, int cols,
                          int rows, int outer, int box_rows) {
   const EncodeTiled encode = encode_tiled();
@@ -277,6 +277,18 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32],
 }
 
 template <int TB>
+__device__ __forceinline__ void wgmma_m64n32_ss(float (&d)[16], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
 __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t a,
                                                 uint64_t b, int scale_d) {
   asm volatile(
@@ -317,6 +329,8 @@ __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64],
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: n 32, 64, 128");
+  if constexpr (N == 32) wgmma_m64n32_ss<TB>(d, a, b, scale_d);
   if constexpr (N == 64) wgmma_m64n64_ss<TB>(d, a, b, scale_d);
   if constexpr (N == 128) wgmma_m64n128_ss<TB>(d, a, b, scale_d);
 }
@@ -325,8 +339,28 @@ template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: n 64, 128");
   if constexpr (N == 64) wgmma_m64n64_rs<TB>(d, a, b, scale_d);
   if constexpr (N == 128) wgmma_m64n128_rs<TB>(d, a, b, scale_d);
+}
+
+// d[64 x N] += A B, A one k-step from registers, B MN-major at `b` in
+// 64-column boxes `box` bytes apart. N = 256 runs as two n128 products:
+// columns 128.. are the accumulator's second half (n-tiles 16..31 are
+// d[64..127] in the wgmma layout) and B's boxes 2 and 3.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            const uint8_t* b, uint32_t box) {
+  if constexpr (N <= 128) {
+    wgmma_rs<N, 1>(d, a, desc_sw128(b, box, 1024), 1);
+  } else {
+    static_assert(N == 256, "wgmma_rs_mn: n 64, 128, 256");
+    wgmma_m64n128_rs<1>(*reinterpret_cast<float(*)[64]>(&d[0]), a,
+                        desc_sw128(b, box, 1024), 1);
+    wgmma_m64n128_rs<1>(*reinterpret_cast<float(*)[64]>(&d[64]), a,
+                        desc_sw128(b + 2 * box, box, 1024), 1);
+  }
 }
 
 }  // namespace hopper

@@ -1,13 +1,17 @@
 """LM serving daemon of the PyTorch port (llm-serve on an NVIDIA card).
 
-    python -m k8s_device_plugin_tpu_torch.models.serve --kv-cache rows
+    python -m k8s_device_plugin_tpu_torch.models.serve
 
 Serves the DecoderLM over HTTP with the reference's vLLM-compatible
 ``POST /v1/completions`` surface plus ``GET /healthz`` and
-``GET /metrics``, through the rows-mode continuous batcher: a fixed pool
-of ``--max-batch`` cache rows decodes in ``--segment-tokens`` segments,
-and waiting prompts prefill into free rows between segments through the
-hand-written flash kernel. ``--device cpu`` runs it on the CPU.
+``GET /metrics``, through the continuous batcher: a fixed pool of
+``--max-batch`` rows decodes in ``--segment-tokens`` segments. With
+``--kv-cache paged`` (the default) K/V live in a page pool with prefix
+reuse, prompts prefill in ``--prefill-chunk`` chunks between segments,
+and every attention read runs through the hand-written paged kernel
+(B2); with ``--kv-cache rows`` each row has its own cache and prompts
+prefill through the flash kernel (B1). ``--device cpu`` runs it on the
+CPU.
 
 This module re-exports the public surface of serve_engine (device core),
 serve_batch (scheduling) and serve_http (protocol + CLI), as the

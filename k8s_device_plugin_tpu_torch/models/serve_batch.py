@@ -1,14 +1,19 @@
 """Continuous batching for the llm-serve daemon, in PyTorch.
 
-The counterpart of ``k8s_device_plugin_tpu/models/serve_batch.py`` for
-the rows KV layout: a fixed pool of cache rows decodes in fixed-length
-segments; prompts join and retire at segment boundaries, so a request
-waits at most one segment, not a neighbour's whole decode. Every
-admission prefills through the flash kernel (serve_engine.prefill_rows).
+The counterpart of ``k8s_device_plugin_tpu/models/serve_batch.py``: a
+fixed pool of rows decodes in fixed-length segments; prompts join and
+retire at segment boundaries, so a request waits at most one segment,
+not a neighbour's whole decode. Two KV layouts, as in the reference:
 
-Not ported yet (ROADMAP.md): the static ``Batcher``, the paged engine
-(``_PagedEngine`` / ``_loop_paged``), speculative segments and the
-disaggregated prefill/decode roles.
+- ``kv_mode="rows"``: contiguous per-row caches; every admission
+  prefills through the flash kernel (serve_engine.prefill_rows).
+- ``kv_mode="paged"`` (``_loop_paged`` / ``_PagedEngine``): a page pool
+  with per-row block tables (models/kv_cache.py), prefix reuse, chunked
+  prefill, copy-on-extend and SLO-class eviction; every attention read
+  runs through the paged kernel B2.
+
+Not ported yet (ROADMAP.md): the static ``Batcher`` (A5), speculative
+segments (A2) and the disaggregated prefill/decode roles (A3).
 
 The HTTP protocol surface lives in serve_http.py.
 """
@@ -23,7 +28,13 @@ import time
 
 import numpy as np
 
-from k8s_device_plugin_tpu_torch.models.kv_cache import SLO_CLASSES, SLO_RANK
+from k8s_device_plugin_tpu_torch.models.kv_cache import (
+    SLO_CLASSES,
+    SLO_RANK,
+    PagePool,
+    PrefixIndex,
+    page_config_from_env,
+)
 from k8s_device_plugin_tpu_torch.models.serve_engine import (
     DeadlineError,
     ServerClosingError,
@@ -394,19 +405,39 @@ class ContinuousBatcher(_BatcherBase):
     The engine thread owns all device calls. Each iteration: admit
     waiting prompts into free rows (one prefill, scattered into the
     pool cache), decode ONE ``segment_tokens``-long loop for every row,
-    retire rows whose budget or EOS hit.
+    retire rows whose budget or EOS hit. ``kv_mode="paged"`` runs the
+    paged engine instead (``_loop_paged``).
     """
 
     def __init__(self, server, max_batch: int = 4,
                  segment_tokens: int = 16, seed: int = 0,
-                 max_pending: int = 0):
+                 max_pending: int = 0, kv_mode: str = "rows",
+                 page_tokens: int = 0, pool_pages: int = 0,
+                 prefill_chunk: int = 0):
         super().__init__(server, seed, max_pending=max_pending)
         self.rows = server._bucket(max(1, max_batch), 1, None)
         # segment_tokens <= 0 = auto-tune during warmup from this
         # device's measured dispatch overhead vs per-token cost.
         self._auto = segment_tokens <= 0
         self.segment = max(1, segment_tokens) if not self._auto else 16
-        threading.Thread(target=self._loop, daemon=True,
+        if kv_mode not in ("rows", "paged"):
+            raise ValueError(f"unknown kv_mode {kv_mode!r} (rows | paged)")
+        self.kv_mode = kv_mode
+        if kv_mode == "paged":
+            # Paged KV cache (models/kv_cache.py): block-table pool with
+            # prefix reuse, chunked prefill, and class-aware eviction.
+            self.kv_config = page_config_from_env(
+                server.config.max_seq_len, self.rows,
+                page_tokens=page_tokens, pool_pages=pool_pages,
+            )
+            # Prefill chunk is a power of two so chunk-length buckets
+            # stay a small set; floor 8. 0 = the 64-token default.
+            self.chunk = server._bucket(
+                max(8, prefill_chunk or 64), 8,
+                cap=server.config.max_seq_len,
+            )
+        target = self._loop_paged if kv_mode == "paged" else self._loop
+        threading.Thread(target=target, daemon=True,
                          name="llm-serve-engine").start()
 
     def warmup(self):
@@ -507,6 +538,124 @@ class ContinuousBatcher(_BatcherBase):
                 live.clear()
                 free = list(range(self.rows))
                 pool = None
+
+    def _loop_paged(self):
+        """Paged-engine thread: admit -> one prefill chunk -> one decode
+        segment, forever.
+
+        Interleaving chunks between segments is the chunked-prefill
+        guarantee: a long prompt costs each in-flight decoder at most one
+        chunk's forward per segment instead of freezing every row for the
+        whole prompt. All page accounting (free list, refcounts, prefix
+        index, block tables) is engine-thread-only, so it needs no locks
+        and stays two-run deterministic."""
+        eng = None
+        while True:
+            got = []
+            try:
+                if eng is None:
+                    eng = _PagedEngine(self)
+                # ---- collect ---------------------------------------
+                if eng.free:
+                    cap = len(eng.free)
+                    block = not eng.live and not eng.filling
+                    while len(got) < cap:
+                        try:
+                            item = self.q.get(timeout=0.2) if block \
+                                else self.q.get_nowait()
+                        except queue.Empty:
+                            break
+                        block = False
+                        if isinstance(item, tuple) and item[0] == "warmup":
+                            try:
+                                eng.warmup()
+                            finally:
+                                item[1].set()
+                                self.q.task_done()
+                            continue
+                        got.append(item)
+                if not got and not eng.live and not eng.filling:
+                    continue
+                now = time.monotonic()
+                still = []
+                for req in got:
+                    if req.expired(now):
+                        req.fail("deadline exceeded while queued",
+                                 kind="deadline")
+                        self.q.task_done()
+                    else:
+                        still.append(req)
+                got = still
+                # ---- admit (prefix match -> filling state) ---------
+                for req in got:
+                    eng.admit(req)
+                got = []
+                # ---- one prefill chunk, then one decode segment ----
+                if eng.filling:
+                    # Chaos hook: device failure mid-chunk (the except
+                    # arm below fails in-flight work and rebuilds the
+                    # pool + page bookkeeping from scratch).
+                    faults.inject("serve.decode_step",
+                                  mode="paged_prefill",
+                                  rows=len(eng.filling))
+                    nfill = len(eng.filling)
+                    lp0 = self.ledgers.now()
+                    with obs_trace.span(
+                        "serve.engine.prefill_chunk",
+                        parent=_rep_ctx(
+                            [st["req"] for st in eng.filling.values()]
+                        ),
+                        journal=False, rows=len(eng.filling),
+                    ):
+                        eng.prefill_chunk_step(self._next_key())
+                    self.flight.record(
+                        "prefill_chunk", rows=nfill,
+                        pages_free=eng.pagepool.free_pages,
+                        queue_depth=self.q.unfinished_tasks,
+                        wall_ms=round(
+                            (self.ledgers.now() - lp0) * 1e3, 3
+                        ),
+                    )
+                if eng.live:
+                    faults.inject("serve.decode_step", mode="paged",
+                                  rows=len(eng.live))
+                    nlive = len(eng.live)
+                    slo_rows: dict = {}
+                    for rq in eng.live.values():
+                        slo_rows[rq.slo] = slo_rows.get(rq.slo, 0) + 1
+                    ld0 = self.ledgers.now()
+                    with obs_trace.span(
+                        "serve.engine.decode_segment",
+                        parent=_rep_ctx(list(eng.live.values())),
+                        journal=False, rows=len(eng.live),
+                    ):
+                        eng.decode_segment_step(self._next_key())
+                    self.flight.record(
+                        "decode_segment",
+                        rows=nlive, slo_rows=slo_rows,
+                        pages_used=(eng.cfg.pool_pages
+                                    - eng.pagepool.free_pages),
+                        pages_free=eng.pagepool.free_pages,
+                        queue_depth=self.q.unfinished_tasks,
+                        wall_ms=round(
+                            (self.ledgers.now() - ld0) * 1e3, 3
+                        ),
+                    )
+            except Exception as e:  # tpulint: disable=TPU001 — engine-thread boundary: the lone decode thread must survive any iteration failure
+                # Device state is suspect: fail everything in flight,
+                # drop every page, restart from a fresh pool and an
+                # empty prefix index.
+                log.exception("paged engine iteration failed")
+                pending = list(got)
+                if eng is not None:
+                    pending += list(eng.live.values())
+                    pending += [st["req"] for st in eng.filling.values()]
+                for req in {id(r): r for r in pending
+                            if not r.done.is_set()}.values():
+                    req.fail(str(e))
+                    self.q.task_done()
+                _g_queue_depth().set(self.q.unfinished_tasks)
+                eng = None
 
     def _decode(self, pool, live, free):
         """One decode segment over the pool; retire finished rows."""
@@ -749,3 +898,436 @@ class ContinuousBatcher(_BatcherBase):
         req.finish_ok()
         self.q.task_done()
         _g_queue_depth().set(self.q.unfinished_tasks)
+
+
+class _PoolExhausted(RuntimeError):
+    """No free pages, nothing evictable, no lower-class victim."""
+
+
+def _c_page_copies():
+    return obs_metrics.counter(
+        "tpu_serve_kv_page_copies_total",
+        "copy-on-extend page copies (a shared or index-published page "
+        "duplicated before a row writes into it)",
+    )
+
+
+class _PagedEngine:
+    """Engine-thread state for the paged ContinuousBatcher mode.
+
+    Owns the device page pool plus all host bookkeeping: the physical
+    free list/refcounts (``PagePool``), the prefix trie
+    (``PrefixIndex``), per-row block tables and ownership sets, and the
+    request states (``filling`` = mid-chunked-prefill, ``live`` =
+    decoding). Everything is touched only by the engine thread —
+    deterministic and lock-free by construction.
+
+    Invariants the correctness tests pin:
+
+    - a row only ever *writes* pages in its ``owned`` set; shared
+      (refcount > 1) and index-published pages are read-only and get
+      copied before the first write (copy-on-extend);
+    - shared prefix pages hold positions strictly below the sharer's
+      ``row_len``, so decode/prefill writes (always at ``>= row_len``)
+      can never land in them;
+    - pages are provisioned for every position a device call will
+      touch *before* the call, so the write clamp never fires for
+      resident rows.
+    """
+
+    def __init__(self, batcher: "ContinuousBatcher"):
+        self.b = batcher
+        self.srv = batcher.server
+        self.cfg = batcher.kv_config
+        self.pagepool = PagePool(self.cfg)
+        self.index = PrefixIndex(self.pagepool)
+        self.pool = self.srv.make_paged_pool(
+            self.cfg.pool_pages, self.cfg.page_tokens
+        )
+        rows = batcher.rows
+        self.tables: list[list[int]] = [[] for _ in range(rows)]
+        self.owned: list[set] = [set() for _ in range(rows)]
+        self.row_len = np.zeros((rows,), np.int64)
+        self.live: dict[int, _Request] = {}
+        self.filling: dict[int, dict] = {}
+        self.free = list(range(rows))
+        self.pending_copies: list[tuple] = []
+
+    # ---- row lifecycle ------------------------------------------------
+
+    def _drop_row(self, r: int) -> None:
+        """Release a row's page references and return it to the free
+        list (the request already finished or failed)."""
+        self.pagepool.release(self.tables[r])
+        self.tables[r] = []
+        self.owned[r] = set()
+        self.row_len[r] = 0
+        self.live.pop(r, None)
+        self.filling.pop(r, None)
+        self.free.append(r)
+
+    def _fail_row(self, r: int, req: _Request, msg: str,
+                  kind: str = "error") -> None:
+        req.fail(msg, kind=kind)
+        self.b.q.task_done()
+        _g_queue_depth().set(self.b.q.unfinished_tasks)
+        self._drop_row(r)
+
+    def _shed_row(self, r: int, req: _Request, msg: str) -> None:
+        """Page-pressure shed: the one seam every scheduling step routes
+        _PoolExhausted through (one instrumentation site, one terminal
+        ledger state)."""
+        _c_shed().inc(reason="pages")
+        self._fail_row(r, req, msg, kind="shed")
+
+    # ---- page accounting ---------------------------------------------
+
+    def _alloc(self, n: int, rank: int,
+               led=obs_ledger.NOOP) -> list:
+        """Allocate ``n`` pages, reclaiming under pressure: cached
+        prefixes evict LRU-first, then live strictly-lower-class
+        requests are preempted (batch-class victims first). Raises
+        :class:`_PoolExhausted` when neither can free enough.
+
+        The fast path (free list has room) stays ledger-silent; only
+        the reclaim path charges page-wait time to ``led``."""
+        ids = self.pagepool.alloc(n)
+        if ids is not None:
+            return ids
+        t0 = self.b.ledgers.now()
+        try:
+            while True:
+                ids = self.pagepool.alloc(n)
+                if ids is not None:
+                    return ids
+                if self.index.evict(n - self.pagepool.free_pages) > 0:
+                    continue
+                victim = self._pick_victim(rank)
+                if victim is None:
+                    raise _PoolExhausted(f"{n} pages unavailable")
+                self._preempt(*victim)
+        finally:
+            led.page_wait(max(0.0, self.b.ledgers.now() - t0))
+
+    def _pick_victim(self, rank: int):
+        """Worst-class (then newest) resident request strictly below
+        ``rank``'s class, or None."""
+        best = None
+        residents = list(self.live.items()) + [
+            (r, st["req"]) for r, st in self.filling.items()
+        ]
+        for r, req in residents:
+            if req.slo_rank > rank and (
+                best is None
+                or (req.slo_rank, req.arrival)
+                > (best[1].slo_rank, best[1].arrival)
+            ):
+                best = (r, req)
+        return best
+
+    def _preempt(self, r: int, req: _Request) -> None:
+        from k8s_device_plugin_tpu_torch.models import kv_cache
+
+        kv_cache._c_evictions().inc(kind="preempt")
+        _c_preempted().inc(resource="pages")
+        req.ledger.preempted()
+        self._fail_row(
+            r, req,
+            f"preempted: KV pages reclaimed for a higher SLO class "
+            f"(request class {req.slo})", kind="shed",
+        )
+
+    def _ensure(self, r: int, upto: int, rank: int,
+                led=obs_ledger.NOOP) -> None:
+        """Provision row ``r``'s block table through token position
+        ``upto`` and make its next write page privately owned."""
+        cfg = self.cfg
+        tbl = self.tables[r]
+        want = min(cfg.pages_for(upto), cfg.max_pages_per_row)
+        need = want - len(tbl)
+        if need > 0:
+            ids = self._alloc(need, rank, led=led)
+            tbl.extend(ids)
+            self.owned[r].update(ids)
+        # Copy-on-extend: the page holding the next write position may
+        # be a shared prefix tail or an index-published page — copy it
+        # to a fresh page before any write can corrupt a sibling's (or
+        # the index's) K/V.
+        pi = int(self.row_len[r]) // cfg.page_tokens
+        if (pi < len(tbl) and tbl[pi] != PagePool.SCRATCH
+                and tbl[pi] not in self.owned[r]):
+            fresh = self._alloc(1, rank, led=led)[0]
+            self.pending_copies.append((tbl[pi], fresh))
+            _c_page_copies().inc()
+            led.page_copy()
+            self.pagepool.release([tbl[pi]])
+            tbl[pi] = fresh
+            self.owned[r].add(fresh)
+
+    def _flush_copies(self) -> None:
+        if not self.pending_copies:
+            return
+        src = [s for s, _ in self.pending_copies]
+        dst = [d for _, d in self.pending_copies]
+        self.pending_copies = []
+        self.pool = self.srv.copy_pages(self.pool, src, dst)
+
+    # ---- scheduling steps --------------------------------------------
+
+    def admit(self, req: _Request) -> None:
+        """Prefix-match the prompt and enter the filling state (the
+        chunk step does the actual prefill work)."""
+        seq = self.srv.config.max_seq_len
+        keep = max(1, seq - req.budget)
+        w = req.prompt[-keep:] or [0]
+        req.budget = min(req.budget, seq - len(w))
+        # Reuse every indexed page of the prompt except the very last
+        # position — its logits are what the first token samples from.
+        pages, matched = self.index.match(w, max_tokens=len(w) - 1)
+        self.pagepool.ref(pages)
+        r = self.free.pop(0)
+        self.tables[r] = list(pages)
+        self.owned[r] = set()
+        self.row_len[r] = matched
+        self.filling[r] = {"req": req, "window": w, "done": matched}
+
+    def prefill_chunk_step(self, key) -> None:
+        """One chunked-prefill device call over every filling row.
+
+        Long prompts advance one chunk per engine iteration, so
+        co-resident decoders stall at most one chunk's forward per
+        segment — never a whole prompt's."""
+        b, srv = self.b, self.srv
+        P = self.cfg.page_tokens
+        for r in sorted(self.filling):
+            st = self.filling.get(r)
+            if st is None:  # preempted by an earlier row's allocation
+                continue
+            req = st["req"]
+            if req.expired():
+                self._fail_row(r, req,
+                               "deadline exceeded while prefilling",
+                               kind="deadline")
+                continue
+            chunk = min(b.chunk, len(st["window"]) - st["done"])
+            try:
+                self._ensure(r, st["done"] + chunk, req.slo_rank,
+                             led=req.ledger)
+            except _PoolExhausted:
+                self._shed_row(r, req, "KV page pool exhausted")
+        if not self.filling:
+            return
+        self._flush_copies()
+        lt0 = b.ledgers.now()
+        rows = b.rows
+        parts = sorted(self.filling)
+        maxchunk = max(
+            min(b.chunk, len(self.filling[r]["window"])
+                - self.filling[r]["done"])
+            for r in parts
+        )
+        C = srv._bucket(maxchunk, 8, cap=b.chunk)
+        W = srv.page_bucket(
+            max(len(self.tables[r]) for r in parts),
+            self.cfg.max_pages_per_row,
+        )
+        toks = np.zeros((rows, C), np.int64)
+        lens = np.zeros((rows,), np.int64)
+        last_idx = np.zeros((rows,), np.int64)
+        temps = np.zeros((rows,), np.float32)
+        topks = np.zeros((rows,), np.int64)
+        bt = np.zeros((rows, W), np.int64)  # scratch-page fill
+        finishing = []
+        for r in parts:
+            st = self.filling[r]
+            req, done = st["req"], st["done"]
+            chunk = min(b.chunk, len(st["window"]) - done)
+            toks[r, :chunk] = st["window"][done:done + chunk]
+            lens[r] = done
+            tbl = self.tables[r]
+            bt[r, :len(tbl)] = tbl
+            if done + chunk == len(st["window"]):
+                finishing.append(r)
+                last_idx[r] = chunk - 1
+                temps[r] = req.temp
+                topks[r] = req.topk
+            st["next_done"] = done + chunk
+        self.pool, first, first_lp = srv.paged_prefill_chunk(
+            self.pool, toks, bt, lens, last_idx, key, temps, topks
+        )
+        lt1 = b.ledgers.now()
+        for r in parts:
+            st = self.filling.get(r)
+            if st is not None:
+                st["done"] = st.pop("next_done")
+                self.row_len[r] = st["done"]
+                st["req"].ledger.prefill_chunk(lt0, lt1)
+        now = time.perf_counter()
+        for r in finishing:
+            st = self.filling.pop(r, None)
+            if st is None:
+                continue
+            req, w = st["req"], st["window"]
+            # Publish the prompt's pages for future prefix hits. The
+            # partial tail page becomes index-owned (read-only): this
+            # row's first decode write into it copy-on-extends.
+            n_pages = self.cfg.pages_for(len(w))
+            self.index.insert(w, self.tables[r][:n_pages])
+            if len(w) % P:
+                self.owned[r].discard(self.tables[r][n_pages - 1])
+            t = int(first[r])
+            req.slot["ttft"] = now - req.arrival
+            req.ledger.first_token(lt1)
+            # TTFT lands when the first token exists — once per request.
+            _h_ttft().observe(req.slot["ttft"], path="paged")
+            hit_eos = srv.eos_id is not None and t == srv.eos_id
+            if hit_eos:
+                req.slot["finish_reason"] = "stop"
+            else:
+                req.asm.push([t])
+                if req.want_lp:
+                    req.lps.append(float(first_lp[r]))
+                req.last = t
+                req.budget -= 1
+                if req.asm.finished:  # single-token stop sequence
+                    req.budget = 0
+            if hit_eos or req.budget <= 0:
+                b._finish(req)
+                self._drop_row(r)
+            else:
+                b._emit(req)
+                self.live[r] = req
+
+    def decode_segment_step(self, key) -> None:
+        """One fixed-length paged decode segment over the live rows."""
+        b, srv = self.b, self.srv
+        seg = b.segment
+        for r in sorted(self.live):
+            req = self.live.get(r)
+            if req is None:  # preempted by an earlier row's allocation
+                continue
+            try:
+                self._ensure(r, int(self.row_len[r]) + seg, req.slo_rank,
+                             led=req.ledger)
+            except _PoolExhausted:
+                self._shed_row(r, req,
+                               "KV page pool exhausted mid-decode")
+        if not self.live:
+            return
+        self._flush_copies()
+        seg_start = time.perf_counter()
+        lt0 = b.ledgers.now()
+        _h_occupancy().observe(len(self.live) / b.rows, mode="continuous")
+        b._observe_slo_occupancy(self.live)
+        rows = b.rows
+        W = srv.page_bucket(
+            max(len(self.tables[r]) for r in self.live),
+            self.cfg.max_pages_per_row,
+        )
+        tok = np.zeros((rows, 1), np.int64)
+        temp = np.zeros((rows,), np.float32)
+        topk = np.zeros((rows,), np.int64)
+        lens = np.zeros((rows,), np.int64)
+        bt = np.zeros((rows, W), np.int64)  # non-live rows: all scratch
+        for r, req in self.live.items():
+            tok[r, 0] = req.last
+            temp[r] = req.temp
+            topk[r] = req.topk
+            lens[r] = self.row_len[r]
+            tbl = self.tables[r]
+            bt[r, :len(tbl)] = tbl
+        self.pool, toks, lps = srv.paged_decode_segment(
+            self.pool, bt, tok, lens, key, temp, topk, seg
+        )
+        toks_host = toks.cpu().numpy()  # [segment, rows]
+        lps_host = (
+            lps.cpu().numpy()
+            if any(rq.want_lp for rq in self.live.values()) else None
+        )
+        _h_decode_step().observe(
+            (time.perf_counter() - seg_start) / seg, path="continuous"
+        )
+        lt1 = b.ledgers.now()
+        for r in self.live:
+            self.row_len[r] = min(
+                int(self.row_len[r]) + seg, srv.config.max_seq_len
+            )
+        self._consume_segment(toks_host, lps_host, lt0, lt1)
+
+    def _consume_segment(self, toks_host, lps_host,
+                         lt0: float = 0.0, lt1: float = 0.0) -> None:
+        """Host-side per-row consumption of one segment's tokens: EOS
+        stop, budget countdown, stop-sequence assembly, finish / expire /
+        emit. ``lt0``/``lt1`` bound the segment's service interval on the
+        ledger clock; each row's ledger is stamped once per segment."""
+        b, srv = self.b, self.srv
+        for r in list(self.live):
+            req = self.live[r]
+            seg_toks, seg_lp = [], []
+            for i, t in enumerate(toks_host[:, r]):
+                t = int(t)
+                if srv.eos_id is not None and t == srv.eos_id:
+                    req.budget = 0
+                    req.slot["finish_reason"] = "stop"
+                    break
+                seg_toks.append(t)
+                if lps_host is not None:
+                    seg_lp.append(float(lps_host[i, r]))
+                req.budget -= 1
+                if req.budget <= 0:
+                    break
+            req.ledger.decode_segment(lt0, lt1, tokens=len(seg_toks),
+                                      kind="plain")
+            if seg_toks:
+                accepted = req.asm.push(seg_toks)
+                req.lps.extend(seg_lp[:accepted])
+                req.last = seg_toks[-1]
+            if req.asm.finished:  # stop sequence completed
+                req.budget = 0
+            if req.budget <= 0:
+                b._finish(req)
+                self._drop_row(r)
+            elif req.expired():
+                self._fail_row(r, req,
+                               "deadline exceeded while decoding",
+                               kind="deadline")
+            else:
+                b._emit(req)
+
+    # ---- warmup -------------------------------------------------------
+
+    def warmup(self) -> None:
+        """Run every (chunk-bucket x page-bucket) prefill, each page
+        bucket's decode segment and each copy bucket once, so
+        steady-state serving never pays a first call in-band (the
+        tpu_serve_jit_compiles_total counter must stay flat after
+        this). Every warmup write lands on the scratch page."""
+        b, srv = self.b, self.srv
+        maxp = self.cfg.max_pages_per_row
+        ws, w = [], srv.page_bucket(1, maxp)
+        while w not in ws:
+            ws.append(w)
+            w = srv.page_bucket(w + 1, maxp)
+        cs, c = [], srv._bucket(1, 8, cap=b.chunk)
+        while c not in cs:
+            cs.append(c)
+            c = srv._bucket(c + 1, 8, cap=b.chunk)
+        rows = b.rows
+        zeros_i = np.zeros((rows,), np.int64)
+        zeros_f = np.zeros((rows,), np.float32)
+        for w in ws:
+            bt = np.zeros((rows, w), np.int64)
+            for c in cs:
+                self.pool, _, _ = srv.paged_prefill_chunk(
+                    self.pool, np.zeros((rows, c), np.int64), bt,
+                    zeros_i, zeros_i, b._next_key(), zeros_f, zeros_i,
+                )
+            self.pool, _, _ = srv.paged_decode_segment(
+                self.pool, bt, np.zeros((rows, 1), np.int64), zeros_i,
+                b._next_key(), zeros_f, zeros_i, b.segment,
+            )
+        n = 1
+        while n <= rows:
+            self.pool = srv.copy_pages(self.pool, [0] * n, [0] * n)
+            n *= 2
+        srv.max_rows = rows

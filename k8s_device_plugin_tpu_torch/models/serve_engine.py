@@ -2,9 +2,11 @@
 
 The counterpart of ``k8s_device_plugin_tpu/models/serve_engine.py``:
 the model on one card (no mesh, no tensor-parallel sharding), prefill
-through the flash kernel, decode loops, sampling, and the batch entry
-points the continuous batcher (serve_batch.py) drives. No HTTP here —
-the protocol surface lives in serve_http.py.
+through the flash kernel, decode loops, sampling, the batch entry
+points the rows-mode continuous batcher (serve_batch.py) drives, and
+the paged programs its paged engine drives (chunked prefill and decode
+segments over a page pool, read through kernel B2; page copies). No
+HTTP here — the protocol surface lives in serve_http.py.
 
 PyTorch runs eagerly, so the reference's jitted programs become plain
 methods. The ``_dispatch`` seam stays: every shape-keyed serving
@@ -191,6 +193,7 @@ class LMServer:
         # Shape-keyed program caches (see _dispatch).
         self._scan_cache: dict[tuple, object] = {}
         self._segment_cache: dict[tuple, object] = {}
+        self._paged_cache: dict[tuple, object] = {}
 
     def generator(self, seed: int = 0) -> torch.Generator:
         """A sampling generator on the serving device."""
@@ -550,3 +553,123 @@ class LMServer:
             logits, lens, key, _f32(temps, dev), _long(topks, dev),
         )
         return cache, first.cpu().numpy(), first_lp.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # paged KV cache programs
+    #
+    # The physical pool is a transformer.PagedKV of per-layer
+    # [pool_pages, page_tokens, kv_heads, head_dim] tensors shared by
+    # every row (the reference's {layer{i}: {attn: {k_pages, v_pages}}}
+    # tree, same layout); the logical view (block tables + row lengths)
+    # is host-owned by the paged engine (serve_batch.py) over
+    # models/kv_cache.py bookkeeping. Every program here runs through a
+    # shape-keyed cache (_paged_cache), so a first call per shape key is
+    # counted in tpu_serve_jit_compiles_total — the counter the
+    # steady-state tests read.
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def make_paged_pool(self, pool_pages: int, page_tokens: int):
+        """Fresh zeroed page pool (page 0 is the engine's scratch)."""
+        from k8s_device_plugin_tpu_torch.models.transformer import (
+            new_paged_pool,
+        )
+
+        return new_paged_pool(self.config, pool_pages, page_tokens,
+                              self.device)
+
+    def page_bucket(self, pages_needed: int, max_pages: int) -> int:
+        """Block-table width bucket: power of two (floor 4) capped at
+        the per-row maximum — the shape key one program serves for every
+        batch whose longest row fits the bucket."""
+        return self._bucket(max(1, pages_needed), min(4, max_pages),
+                            cap=max_pages)
+
+    @torch.inference_mode()
+    def paged_prefill_chunk(self, pool, toks, bt, lens, last_idx, key,
+                            temps, topks):
+        """One chunked-prefill step: write ``toks`` [rows, C] into the
+        rows' pages at positions ``lens + arange(C)`` and sample each
+        row's token at chunk index ``last_idx`` (the first generated
+        token for rows whose prompt ends in this chunk; ignored for the
+        rest). Returns (pool, tokens on host, logprobs on host); the pool
+        is updated in place. One program per (rows, C, W) bucket."""
+        dev = self.device
+        rows, chunk = toks.shape
+
+        def build():
+            def run(pool, toks, bt, lens, last_idx, gen, temp, topk):
+                logits = self.model(toks, pool, pages=(bt, lens))
+                tok, lp = self._sample_with_logp(
+                    logits[torch.arange(rows, device=dev), last_idx],
+                    gen, temp, topk,
+                )
+                return pool, tok, lp
+
+            return run
+
+        pool, tok, lp = self._dispatch(
+            "paged_prefill", self._paged_cache,
+            ("prefill_chunk", rows, chunk, bt.shape[1]), build,
+            pool, _long(toks, dev), _long(bt, dev), _long(lens, dev),
+            _long(last_idx, dev), key, _f32(temps, dev), _long(topks, dev),
+        )
+        return pool, tok.cpu().numpy(), lp.cpu().numpy()
+
+    @torch.inference_mode()
+    def paged_decode_segment(self, pool, bt, tok, lens, key, temp, topk,
+                             segment: int):
+        """One fixed-length decode segment over the paged row pool.
+
+        Same contract as :meth:`decode_segment` — (pool, tokens
+        [segment, rows], logprobs [segment, rows]), the pool updated in
+        place — but attention reads each row's pages through its table,
+        so the program's shape key is (rows, W, segment): independent of
+        prompt lengths. Row lengths advance on the device, step by
+        step."""
+        dev = self.device
+
+        def build():
+            def run(pool, bt, tok, lens, gen, temp, topk):
+                toks, lps = [], []
+                for _ in range(segment):
+                    logits = self.model(tok, pool, pages=(bt, lens))
+                    nxt, lp = self._sample_with_logp(logits[:, -1], gen,
+                                                     temp, topk)
+                    toks.append(nxt)
+                    lps.append(lp)
+                    tok, lens = nxt[:, None], lens + 1
+                return pool, torch.stack(toks), torch.stack(lps)
+
+            return run
+
+        return self._dispatch(
+            "paged_segment", self._paged_cache,
+            ("segment", tok.shape[0], bt.shape[1], segment), build,
+            pool, _long(bt, dev), _long(tok, dev), _long(lens, dev), key,
+            _f32(temp, dev), _long(topk, dev),
+        )
+
+    @torch.inference_mode()
+    def copy_pages(self, pool, src_ids, dst_ids):
+        """Copy whole pages src -> dst in every layer (copy-on-extend),
+        in place. The engine batches one call per iteration; the id
+        lists pad to a power-of-two bucket with scratch -> scratch
+        no-ops."""
+        dev = self.device
+        n = self._bucket(len(src_ids), 1, None)
+        src = list(src_ids) + [0] * (n - len(src_ids))
+        dst = list(dst_ids) + [0] * (n - len(dst_ids))
+
+        def build():
+            def run(pool, src, dst):
+                for p in pool.k_pages + pool.v_pages:
+                    p.index_copy_(0, dst, p[src])
+                return pool
+
+            return run
+
+        return self._dispatch(
+            "page_copy", self._paged_cache, ("copy", n), build,
+            pool, _long(src, dev), _long(dst, dev),
+        )

@@ -4,14 +4,17 @@ The counterpart of ``k8s_device_plugin_tpu/models/serve_http.py``: the
 vLLM-compatible ``POST /v1/completions`` handler (validation, SSE
 streaming, logprobs/echo/n), ``GET /healthz``, ``GET /metrics``, the
 debug listings, and graceful-shutdown main(), over the PyTorch engine
-(serve_engine.py) and the rows-mode continuous batcher
-(serve_batch.py).
+(serve_engine.py) and the continuous batcher (serve_batch.py) in either
+KV layout: ``--kv-cache paged`` (the default, as in the reference) or
+``rows``.
 
-The flag surface is the reference's, narrowed to what this slice ports
-(each narrowing is a gap in ROADMAP.md section C): ``--kv-cache rows``,
-``--batching continuous``, ``--role both``; ``--checkpoint`` raises.
-``--device`` is new: the card by default, ``cpu`` on request (the
-counterpart of the reference's ``JAX_PLATFORMS``).
+The flag surface is the reference's, narrowed where the port still
+lacks a module (each narrowing is a gap in ROADMAP.md section C):
+``--batching continuous`` (the static batcher is A5), ``--role both``
+(the handoff roles are A3), no speculative flags (A2);
+``--checkpoint`` raises. ``--device`` is new: the card by default,
+``cpu`` on request (the counterpart of the reference's
+``JAX_PLATFORMS``).
 """
 
 from __future__ import annotations
@@ -102,7 +105,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    default="continuous",
                    help="continuous: fixed row pool, requests join/leave "
                         "at segment boundaries (static batching is not "
-                        "ported yet)")
+                        "ported yet: ROADMAP.md, A5)")
     p.add_argument("--max-batch", type=int, default=4,
                    help="decode row pool width")
     p.add_argument("--segment-tokens", type=int, default=16,
@@ -111,13 +114,28 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "dispatch overhead")
     p.add_argument("--seed", type=int, default=0,
                    help="server-level sampling generator seed")
-    p.add_argument("--kv-cache", choices=("rows",), default="rows",
-                   help="KV layout: rows = contiguous per-row caches "
-                        "(the paged layout is not ported yet)")
+    p.add_argument("--kv-cache", choices=("paged", "rows"),
+                   default="paged",
+                   help="continuous-mode KV layout: paged = block-table "
+                        "page pool with prefix reuse, chunked prefill "
+                        "and SLO-class eviction (docs/serving.md); "
+                        "rows = legacy contiguous per-row caches")
+    p.add_argument("--kv-page-tokens", type=int, default=0,
+                   help="token slots per KV page (paged mode; 0 = "
+                        "TPU_KV_PAGE_TOKENS env or 16)")
+    p.add_argument("--kv-pool-pages", type=int, default=0,
+                   help="physical pages in the KV pool (paged mode; 0 "
+                        "= TPU_KV_POOL_PAGES env or sized to max-batch "
+                        "full-length rows); shrink to overcommit on "
+                        "prefix sharing")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="paged mode: prompt tokens prefilled per engine "
+                        "iteration; long prompts interleave with decode "
+                        "segments in chunks this size (0 = default 64)")
     p.add_argument("--role", choices=("both",), default="both",
                    help="serving role: both = single process "
                         "(disaggregated prefill/decode is not ported "
-                        "yet)")
+                        "yet: ROADMAP.md, A3)")
     p.add_argument("--max-pending", type=int, default=128,
                    help="admission bound: requests admitted but not "
                         "yet finished; past it submits shed with 429 "
@@ -470,7 +488,10 @@ def main(argv=None, on_ready=None) -> int:
         batcher = ContinuousBatcher(
             server, max_batch=args.max_batch,
             segment_tokens=args.segment_tokens, seed=args.seed,
-            max_pending=args.max_pending,
+            max_pending=args.max_pending, kv_mode=args.kv_cache,
+            page_tokens=args.kv_page_tokens,
+            pool_pages=args.kv_pool_pages,
+            prefill_chunk=args.prefill_chunk,
         )
         if not args.no_warmup:
             batcher.warmup()
@@ -499,8 +520,9 @@ def main(argv=None, on_ready=None) -> int:
         signal.signal(signal.SIGINT, _graceful)
 
     log_event("llm-serve", "serving", note=str(server.device))
-    log.info("llm-serve listening on :%d (%s batching, %s)",
-             httpd.server_address[1], args.batching, server.device)
+    log.info("llm-serve listening on :%d (%s batching, %s KV, %s)",
+             httpd.server_address[1], args.batching, args.kv_cache,
+             server.device)
     if on_ready is not None:
         on_ready(httpd, batcher)
     httpd.serve_forever()

@@ -4,10 +4,12 @@ The counterpart of ``k8s_device_plugin_tpu/models/transformer.py`` on
 one device: the same config and knobs (rms / layernorm, learned / rope
 positions, GQA, gelu / swiglu, biases, tied embeddings), the
 full-sequence forward, the rows-layout kv-cache forward (prefill and
-incremental steps), and training: ``loss_fn``, ``chunked_lm_loss``,
-``make_train_step``, ``train_flops_per_step``, ``benchmark_train`` and
-the ``lm-train-benchmark`` CLI (``main``). Paged attention, MoE and
-sequence parallelism are not ported yet (ROADMAP.md).
+incremental steps), the paged-layout forward (a page pool read through
+per-row block tables: prefill chunks and decode steps), and training:
+``loss_fn``, ``chunked_lm_loss``, ``make_train_step``,
+``train_flops_per_step``, ``benchmark_train`` and the
+``lm-train-benchmark`` CLI (``main``). MoE and sequence parallelism are
+not ported yet (ROADMAP.md).
 
 Numerics follow flax's, since the tests hold this module to the
 reference's logits and gradients:
@@ -46,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from k8s_device_plugin_tpu_torch.ops.attention import flash_attention
+from k8s_device_plugin_tpu_torch.ops.paged_attention import paged_attention
 from k8s_device_plugin_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -177,6 +180,34 @@ def set_cache_index(cache: KVCache, value) -> KVCache:
     return KVCache(k=cache.k, v=cache.v, idx=idx)
 
 
+@dataclasses.dataclass
+class PagedKV:
+    """The paged engine's physical K/V pool: the reference's ``cache``
+    collection of ``k_pages`` / ``v_pages`` per layer.
+
+    ``k_pages[l]`` / ``v_pages[l]`` are layer l's ``[pool_pages,
+    page_tokens, kv_heads, head_dim]`` buffers (post-RoPE keys), shared
+    by every row and updated in place where the reference returns an
+    updated copy. The logical view — block tables and row lengths — is
+    the caller's and comes in as ``pages=(bt, lens)``; page 0 is the
+    engine's scratch page."""
+
+    k_pages: list
+    v_pages: list
+
+
+def new_paged_pool(config: LMConfig, pool_pages: int, page_tokens: int,
+                   device) -> PagedKV:
+    """A zeroed page pool (the reference's ``make_paged_pool``)."""
+    shape = (pool_pages, page_tokens, config.kv_heads, config.head_dim)
+    return PagedKV(
+        k_pages=[torch.zeros(shape, dtype=config.dtype, device=device)
+                 for _ in range(config.num_layers)],
+        v_pages=[torch.zeros(shape, dtype=config.dtype, device=device)
+                 for _ in range(config.num_layers)],
+    )
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
@@ -298,15 +329,17 @@ class Attention(nn.Module):
         self.wv = dense(cfg.embed_dim, cfg.kv_heads * hd, qkv_bias)
         self.wo = dense(cfg.num_heads * hd, cfg.embed_dim, cfg.use_bias)
 
-    def forward(self, x, cache: KVCache | None = None, layer: int = 0,
-                prefill: bool = False):
+    def forward(self, x, cache=None, layer: int = 0, prefill: bool = False,
+                pages=None):
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim
         q = self.wq(x).view(b, s, cfg.num_heads, hd)
         k = self.wk(x).view(b, s, cfg.kv_heads, hd)
         v = self.wv(x).view(b, s, cfg.kv_heads, hd)
-        if cache is not None:
+        if pages is not None:
+            out = self._paged_attention(q, k, v, cache, layer, pages)
+        elif cache is not None:
             out = self._cached_attention(q, k, v, cache, layer, prefill)
         else:
             if cfg.position == "rope":
@@ -385,6 +418,38 @@ class Attention(nn.Module):
             batch, block_len, heads, head_dim
         )
 
+    def _paged_attention(self, q, k, v, pool: PagedKV, layer: int, pages):
+        """Incremental decoding against the paged pool (the reference's
+        ``_paged_attention``).
+
+        ``pages = (bt [rows, W], lens [rows])``: row r's K/V for absolute
+        position p lives at page ``bt[r, p // P]``, offset ``p % P``, and
+        this call's block starts at position ``lens[r]``. Rotates q and k
+        at those absolute positions (so a page one row wrote reads back
+        right for every row sharing it), scatters the block's K/V through
+        the table in place (positions clamped to the table's span, as
+        the reference clamps), then reads through ``paged_attention``:
+        kernel B2 on the card, the plain gather on the CPU. Unassigned
+        slots point at the scratch page; their positions lie past
+        ``lens``, so the mask hides them. Advancing ``lens`` is the
+        caller's job."""
+        cfg = self.cfg
+        bt, lens = pages
+        block_len, head_dim = q.shape[1], q.shape[3]
+        k_pages, v_pages = pool.k_pages[layer], pool.v_pages[layer]
+        page_tokens = k_pages.shape[1]
+        span = bt.shape[1] * page_tokens
+        q_pos = lens[:, None] + torch.arange(block_len, device=q.device)
+        if cfg.position == "rope":
+            cos, sin = rope_cos_sin(q_pos, head_dim, cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+        pos = torch.clamp(q_pos, max=span - 1)
+        where = (torch.gather(bt, 1, pos // page_tokens), pos % page_tokens)
+        k_pages.index_put_(where, k.to(cfg.dtype))
+        v_pages.index_put_(where, v.to(cfg.dtype))
+        return paged_attention(q, k_pages, v_pages, bt, q_pos)
+
 
 class MLP(nn.Module):
     def __init__(self, cfg: LMConfig, param_dtype=None):
@@ -416,10 +481,11 @@ class Block(nn.Module):
         self.ln2 = make_norm(cfg, trainable)
         self.mlp = MLP(cfg, param_dtype)
 
-    def forward(self, x, cache=None, layer: int = 0, prefill: bool = False):
+    def forward(self, x, cache=None, layer: int = 0, prefill: bool = False,
+                pages=None):
         # The residual stream keeps its dtype: x + (cfg.dtype output),
         # as jnp promotion does for x in cfg.dtype.
-        x = x + self.attn(self.ln1(x), cache, layer, prefill)
+        x = x + self.attn(self.ln1(x), cache, layer, prefill, pages)
         return x + self.mlp(self.ln2(x))
 
 
@@ -448,16 +514,19 @@ class DecoderLM(nn.Module):
             self.lm_head = Dense(cfg.embed_dim, cfg.vocab_size, False,
                                  cfg.dtype, param_dtype)
 
-    def forward(self, tokens, cache: KVCache | None = None,
-                prefill: bool = False, return_features: bool = False):
+    def forward(self, tokens, cache=None, prefill: bool = False,
+                return_features: bool = False, pages=None):
         """Logits (float32 ``[b, s, vocab]``) for ``tokens [b, s]``.
 
-        Without a cache: the full-sequence causal forward. With one: the
-        decode forward at ``cache.idx`` (``prefill`` for the first block
-        of a fresh cache), which writes every layer's K/V and then
-        advances the index by ``s`` in place. ``return_features`` returns
-        the final norm's output instead of logits (the chunked loss
-        applies the head itself)."""
+        Without a cache: the full-sequence causal forward. With a
+        ``KVCache``: the decode forward at ``cache.idx`` (``prefill`` for
+        the first block of a fresh cache), which writes every layer's K/V
+        and then advances the index by ``s`` in place. With a ``PagedKV``
+        pool and ``pages=(bt, lens)``: the paged forward at positions
+        ``lens + arange(s)``, which writes every layer's K/V into the pool
+        and advances nothing (the engine owns the lengths).
+        ``return_features`` returns the final norm's output instead of
+        logits (the chunked loss applies the head itself)."""
         cfg = self.cfg
         s = tokens.shape[1]
         # Out-of-range ids clamp, as the reference's gather does. flax
@@ -466,7 +535,10 @@ class DecoderLM(nn.Module):
         x = self.embed.to(cfg.dtype)[tokens.clamp(0, cfg.vocab_size - 1)]
         if cfg.position == "learned":
             ar = torch.arange(s, device=tokens.device)
-            if cache is None:
+            if pages is not None:
+                positions = torch.clamp(pages[1][:, None] + ar,
+                                        max=cfg.max_seq_len - 1)
+            elif cache is None:
                 positions = ar
             else:
                 idx = cache.idx
@@ -476,8 +548,8 @@ class DecoderLM(nn.Module):
             pos = self.pos_embed.to(cfg.dtype)[positions]
             x = x + (pos if pos.dim() == 3 else pos[None])
         for i, layer in enumerate(self.layers):
-            x = layer(x, cache, i, prefill)
-        if cache is not None:
+            x = layer(x, cache, i, prefill, pages)
+        if cache is not None and pages is None:
             cache.idx = cache.idx + s
         x = self.ln_f(x)
         if return_features:

@@ -35,11 +35,11 @@ and over which steps it loops, in launch order. The C entry point
 refuses a plan that does not match its build, and each block reads its
 row of the schedule.
 
-The kernels take head dims 64 and 128. On the card, any other head dim
-up to 128 is zero-padded to the next of them with the softmax scale of
-the true dim, and the results are sliced back: zero lanes add nothing,
-so this is exact (the reference's own rule, attention.py:575-594).
-Larger head dims raise.
+The kernels take head dims 64, 128 and 256. On the card, any other head
+dim up to 256 is zero-padded to the next of them with the softmax scale
+of the true dim, and the results are sliced back: zero lanes add
+nothing, so this is exact (the reference's own rule,
+attention.py:575-599). Larger head dims raise (ROADMAP.md, queue C).
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ import functools
 import torch
 
 _NEG_INF = -1e30
-_KERNEL_DIMS = (64, 128)
+_KERNEL_DIMS = (64, 128, 256)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -235,7 +235,9 @@ class LaunchPlan:
     stages, the steps that ``schedule()`` gives it. ``boxes`` are the TMA
     boxes, (operand, bytes per box row, box rows). ``args`` is what the C
     entry point takes beside the schedule: the first four it checks
-    against its build, the last is the grid."""
+    against its build, the last is the schedule's length. ``splits`` is
+    how many blocks run each schedule row, neighbours in launch order,
+    each owning ``head_dim / splits`` output columns (B4 at d = 256)."""
 
     kernel: str
     head_dim: int
@@ -251,6 +253,7 @@ class LaunchPlan:
     threads: int
     smem_bytes: int
     boxes: tuple
+    splits: int = 1
 
     @property
     def grid(self) -> int:
@@ -295,10 +298,12 @@ class LaunchPlan:
 def flash_fwd_plan(batch: int, heads: int, kv_heads: int, seq_q: int,
                    seq_k: int, head_dim: int, causal: bool) -> LaunchPlan:
     """B1 (bf16): 128 q rows a block (two warpgroups of 64), K/V stages of
-    128 keys, as many stages as fit beside Q (4 at d = 64, 3 at d = 128);
-    the shared-memory layout of csrc/flash_fwd.cu's FwdPlan."""
-    block, step = _WG_ROWS * _CONSUMERS, 128
-    stages = 4 if head_dim == 64 else 3
+    128 keys (64 at d = 256, where the O accumulator takes 128 registers
+    a thread), as many stages as fit beside Q (4 / 3 / 2 at d = 64 / 128 /
+    256); the shared-memory layout of csrc/flash_fwd.cu's FwdPlan."""
+    block = _WG_ROWS * _CONSUMERS
+    step = 64 if head_dim == 256 else 128
+    stages = {64: 4, 128: 3, 256: 2}[head_dim]
     q_bytes = block * head_dim * 2
     kv_bytes = step * head_dim * 2
     smem = 1024 + q_bytes + stages * 2 * kv_bytes + (2 * stages + 1) * 8
@@ -313,13 +318,13 @@ def flash_fwd_plan(batch: int, heads: int, kv_heads: int, seq_q: int,
 def flash_bwd_dq_plan(batch: int, heads: int, kv_heads: int, seq_q: int,
                       seq_k: int, head_dim: int, causal: bool) -> LaunchPlan:
     """B3 (bf16): 128 q rows a block (two warpgroups of 64) with Q and dO
-    resident, K/V stages of 64 keys in a ring of 5 at d = 128, of 128 keys
-    in a ring of 4 at d = 64; the shared-memory layout of
-    csrc/flash_bwd.cu's dq::Plan. The key stage is what keeps a
-    consumer's dQ accumulator (d/2 fp32), its S and dP tiles and dS's bf16
-    operands in registers without spills."""
+    resident, K/V stages of 128 keys in a ring of 4 at d = 64, of 64 keys
+    in a ring of 5 at d = 128, of 32 keys in a ring of 3 at d = 256; the
+    shared-memory layout of csrc/flash_bwd.cu's dq::Build. The key stage
+    is what keeps a consumer's dQ accumulator (d/2 fp32), its S and dP
+    tiles and dS's bf16 operands in registers without spills."""
     block = _WG_ROWS * _CONSUMERS
-    step, stages = (64, 5) if head_dim == 128 else (128, 4)
+    step, stages = {64: (128, 4), 128: (64, 5), 256: (32, 3)}[head_dim]
     q_bytes = block * head_dim * 2
     kv_bytes = step * head_dim * 2
     smem = 1024 + 2 * q_bytes + stages * 2 * kv_bytes + (2 * stages + 1) * 8
@@ -334,11 +339,14 @@ def flash_bwd_dq_plan(batch: int, heads: int, kv_heads: int, seq_q: int,
 def flash_bwd_dkv_plan(batch: int, heads: int, kv_heads: int, seq_q: int,
                        seq_k: int, head_dim: int, causal: bool) -> LaunchPlan:
     """B4 (bf16): 128 keys a block (two warpgroups of 64), q steps of 64
-    rows, Q/dO stages as fit beside K and V (4 at d = 64, 3 at d = 128);
-    the shared-memory layout of csrc/flash_bwd.cu's dkv::Plan. The q step
-    is what keeps a consumer's dK and dV accumulators (2·d/2 fp32) and its
-    S^T and dP^T tiles in registers without spills."""
-    block, step = _WG_ROWS * _CONSUMERS, 64
+    rows (32 at d = 256), Q/dO stages as fit beside K and V (4 / 3 / 3 at
+    d = 64 / 128 / 256); the shared-memory layout of csrc/flash_bwd.cu's
+    dkv::Plan and dkv::Build. The q step is what keeps a consumer's dK and
+    dV accumulators (2·d/2 fp32) and its S^T and dP^T tiles in registers
+    without spills; at d = 256 the accumulators are split over two blocks
+    per schedule row, one per 128-column half of dK and dV."""
+    block = _WG_ROWS * _CONSUMERS
+    step = 32 if head_dim == 256 else 64
     stages = 4 if head_dim == 64 else 3
     kv_bytes = block * head_dim * 2
     step_bytes = step * head_dim * 2
@@ -348,7 +356,8 @@ def flash_bwd_dkv_plan(batch: int, heads: int, kv_heads: int, seq_q: int,
              ("k", _BOX_ROW, block), ("v", _BOX_ROW, block))
     return LaunchPlan("flash_bwd_dkv", head_dim, bool(causal), seq_q, seq_k,
                       heads // kv_heads, batch * kv_heads, -(-seq_k // block),
-                      block, step, stages, _THREADS, smem, boxes)
+                      block, step, stages, _THREADS, smem, boxes,
+                      splits=2 if head_dim == 256 else 1)
 
 
 @functools.lru_cache(maxsize=256)
@@ -484,12 +493,14 @@ def flash_backward_cuda(q, k, v, out, lse, g, g_lse=None,
 
 def kernel_head_dim(d: int) -> int:
     """The head dim the kernels run a true head dim ``d`` at: the next of
-    64 / 128. Raises above 128."""
+    64 / 128 / 256. Raises above 256 (no model config of the repository
+    has such a head dim; ROADMAP.md, queue C)."""
     for dim in _KERNEL_DIMS:
         if d <= dim:
             return dim
-    raise ValueError(f"flash attention: head dim {d} not supported "
-                     f"(at most {_KERNEL_DIMS[-1]})")
+    raise ValueError(f"flash attention: head dim {d} not supported on the "
+                     f"card (at most {_KERNEL_DIMS[-1]}; ROADMAP.md, "
+                     f"queue C)")
 
 
 def _pad(x, dim):

@@ -230,12 +230,14 @@ def test_backward_kernel_entry_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("dim,want", [(16, 64), (64, 64), (96, 128),
-                                      (128, 128), (256, None)])
+                                      (128, 128), (192, 256), (256, 256),
+                                      (384, None)])
 def test_kernel_head_dim_pads_up_to_64_or_128(dim, want):
-    """Head dims run on the card zero-padded to the next kernel width
-    (the reference's rule pads to 128 lanes); above 128 raises."""
+    """Head dims run on the card zero-padded to the next kernel width,
+    64, 128 or 256 (the reference's rule pads to 128 lanes); above 256
+    raises, naming ROADMAP's queue C."""
     if want is None:
-        with pytest.raises(ValueError, match="head dim"):
+        with pytest.raises(ValueError, match="head dim.*ROADMAP"):
             tattn.kernel_head_dim(dim)
     else:
         assert tattn.kernel_head_dim(dim) == want

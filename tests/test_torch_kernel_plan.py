@@ -45,12 +45,14 @@ LOG2E = 1.4426950408889634
 # launch plans
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("dim", [64, 128, 256])
 @pytest.mark.parametrize("kernel", sorted(PLANS))
 def test_plan_fits_the_card(kernel, dim):
     """Shared memory within the 232,448 bytes a block may use, every TMA
     box row within the 128-byte swizzle, at least two stages, a producer
-    warpgroup beside two consumer warpgroups."""
+    warpgroup beside two consumer warpgroups, and the fp32 accumulators
+    of a consumer thread (64 rows over 128 threads: O or dQ, or B4's dK
+    and dV over the columns a block owns) within 128 registers."""
     plan = PLANS[kernel](8, 8, 8, 2048, 2048, dim, True)
     assert plan.smem_bytes <= tattn.SMEM_LIMIT == 232_448
     for _, row_bytes, rows in plan.boxes:
@@ -58,6 +60,9 @@ def test_plan_fits_the_card(kernel, dim):
         assert 1 <= rows <= 256
     assert plan.stages >= 2 and plan.threads == 384
     assert plan.block_rows == 128 and plan.step_rows % 16 == 0
+    assert dim % plan.splits == 0
+    accumulators = 2 if kernel == "b4" else 1
+    assert accumulators * (dim // plan.splits) // 2 <= 128
 
 
 @pytest.mark.parametrize("seq", SEQS)
@@ -67,7 +72,7 @@ def test_schedule_covers_each_tile_once_heaviest_first(kernel, seq):
     first step, end step) covers every (group, tile) exactly once, gives
     each block the steps its tile needs and no more, and puts the blocks
     with the most steps first under a causal mask."""
-    for dim in (64, 128):
+    for dim in (64, 128, 256):
         for causal in (True, False):
             plan = PLANS[kernel](2, 8, 2, seq, seq, dim, causal)
             rows = plan.schedule()
@@ -269,6 +274,7 @@ def _blocks(seq):
 @pytest.mark.parametrize("seq,dim,n_rep,causal", [
     (63, 64, 1, True), (129, 128, 4, True), (200, 64, 4, False),
     (200, 128, 1, True), (65, 64, 4, True), (256, 128, 1, False),
+    (129, 256, 2, True),
 ])
 def test_tile_model_forward_matches_pallas_interpret(seq, dim, n_rep, causal):
     """The model's O and natural-log LSE against the reference's Pallas
@@ -329,7 +335,7 @@ def _assert_close(got, want, tol):
 
 @pytest.mark.parametrize("seq,dim,n_rep,causal", [
     (129, 64, 4, True), (200, 128, 1, True), (63, 64, 4, False),
-    (200, 64, 4, True),
+    (200, 64, 4, True), (129, 256, 2, True),
 ])
 def test_tile_model_dkv_matches_jax_vjp(seq, dim, n_rep, causal):
     """The model's dK/dV, summed over each GQA group, against jax.vjp of
@@ -345,14 +351,14 @@ def test_tile_model_dkv_matches_jax_vjp(seq, dim, n_rep, causal):
 
 @pytest.mark.parametrize("seq,dim,n_rep,causal", [
     (129, 64, 4, True), (200, 128, 1, True), (63, 128, 4, False),
-    (256, 64, 1, False),
+    (256, 64, 1, False), (200, 256, 1, True),
 ])
 def test_tile_model_dq_matches_jax_vjp(seq, dim, n_rep, causal):
     """The model's dQ against jax.vjp of the reference's
     flash_attention_with_lse (Pallas backward in interpret mode) over
     repeat_kv, with random cotangents on both outputs: ragged lengths,
-    GQA read in place, d = 64 (128-key stages) and d = 128 (64-key
-    stages), causal and not."""
+    GQA read in place, d = 64 (128-key stages), d = 128 (64-key stages)
+    and d = 256 (32-key stages), causal and not."""
     args, (want_dq, _, _) = _jax_backward(
         seq, dim, n_rep, causal, seed=3 * seq + dim + n_rep)
     for round_ops, tol in ((False, None), (True, 2e-2)):

@@ -26,7 +26,7 @@ from k8s_device_plugin_tpu_torch.models.serve import (
     ContinuousBatcher,
     LMServer,
 )
-from k8s_device_plugin_tpu_torch.ops import attention
+from k8s_device_plugin_tpu_torch.ops import attention, paged_attention
 
 pytestmark = pytest.mark.gpu
 
@@ -72,15 +72,15 @@ def test_flash_kernel_matches_plain(cuda, shape, kv_heads, dtype, tol,
     assert (got_l - want_l).abs().max().item() <= tol
 
 
-# Tile edges of the Hopper bf16 kernels (128-row q tiles and key stages in
-# B1, 128-row q tiles and 64- or 128-key stages in B3, 128-key blocks and
-# 64-row q steps in B4): one row, one short of and one past a tile,
-# ragged, and the flagship length.
+# Tile edges of the Hopper bf16 kernels (128-row q tiles and 128-key stages
+# in B1, 64 at d = 256; 128-row q tiles and 128-, 64- or 32-key stages in
+# B3; 128-key blocks and 64-row q steps in B4, 32 at d = 256): one row, one
+# short of and one past a tile, ragged, and the flagship length.
 EDGE_SEQS = [1, 127, 129, 200, 2048]
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("dim", [64, 128, 256])
 @pytest.mark.parametrize("seq", EDGE_SEQS)
 def test_hopper_forward_tile_edges(cuda, seq, dim, causal):
     """B1's bf16 kernel (TMA + wgmma) against the plain version at the
@@ -96,7 +96,7 @@ def test_hopper_forward_tile_edges(cuda, seq, dim, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("dim", [64, 128, 256])
 @pytest.mark.parametrize("seq", EDGE_SEQS)
 def test_hopper_backward_tile_edges(cuda, seq, dim, causal):
     """B3's and B4's bf16 kernels against the plain backward at the tile
@@ -215,13 +215,15 @@ def _grads(q, k, v, causal, fn):
     return res
 
 
-@pytest.mark.parametrize("dim", [32, 256])
+@pytest.mark.parametrize("dim", [32, 192, 256, 384])
 def test_flash_kernel_raises_on_unsupported_head_dim(cuda, dim):
-    """d = 32 is zero-padded to the kernels' 64 and matches the plain
-    version, forward and backward; d = 256 (above 128) raises."""
+    """d = 32 and d = 192 are zero-padded to the kernels' 64 and 256,
+    d = 256 runs its own instance: each matches the plain version,
+    forward and backward. d = 384 (above 256) raises, naming ROADMAP's
+    queue C."""
     q, k, v = _qkv((1, 2, 128, dim), 2, torch.float32)
-    if dim > 128:
-        with pytest.raises(ValueError, match="head dim"):
+    if dim > 256:
+        with pytest.raises(ValueError, match="head dim.*ROADMAP"):
             attention.flash_attention(q, k, v, causal=True)
         return
     got, want = _grads(q, k, v, True, attention.flash_attention_with_lse)
@@ -323,3 +325,65 @@ def test_continuous_engine_on_card_matches_oracle(cuda):
     assert got == want
     assert attention.FLASH_FWD.launches > before
     assert eng.drain(timeout=30)
+
+
+def paged_inputs(batch, L, heads, kv_heads, d, page_tokens, lens, dtype,
+                 seed=0):
+    """Pools of random pages, each row's pages in a scrambled order, and
+    q at positions lens + arange(L); a row with lens[r] < 0 has every
+    table slot on scratch page 0 (at positions 0 .. L - 1). Returns (q,
+    k_pages, v_pages, bt, q_pos) on the card."""
+    rng = np.random.default_rng(seed)
+    span = max(max(lens) + L, L)
+    W = -(-span // page_tokens)
+    pool_pages = 1 + batch * W
+    perm = rng.permutation(np.arange(1, pool_pages)).reshape(batch, W)
+    bt = np.where(np.asarray(lens)[:, None] < 0, 0, perm).astype(np.int32)
+    q_pos = np.maximum(np.asarray(lens), 0)[:, None] + np.arange(L)
+
+    def rand(*shape):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        return torch.from_numpy(a).cuda().to(dtype)
+
+    return (rand(batch, L, heads, d),
+            rand(pool_pages, page_tokens, kv_heads, d),
+            rand(pool_pages, page_tokens, kv_heads, d),
+            torch.from_numpy(bt).cuda(),
+            torch.from_numpy(q_pos.astype(np.int32)).cuda())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("L,heads,kv_heads,d,page_tokens", [
+    (1, 16, 16, 64, 16),     # decode at the serving default
+    (64, 16, 16, 64, 16),    # a prefill chunk at the serving default
+    (1, 8, 2, 128, 8),       # GQA decode
+    (5, 8, 1, 64, 8),        # MQA, a short chunk
+    (3, 4, 2, 256, 16),      # d = 256
+    (2, 4, 4, 16, 8),        # the tiny config's head dim
+])
+def test_paged_attention_kernel_matches_plain(cuda, L, heads, kv_heads, d,
+                                              page_tokens, dtype, tol):
+    """B2 against the plain paged read on the same pools and tables:
+    ragged row lengths up to 1000, one row all on scratch page 0."""
+    lens = [1000, 37, 0, -1]
+    args = paged_inputs(4, L, heads, kv_heads, d, page_tokens, lens, dtype,
+                        seed=d + L)
+    before = paged_attention.PAGED_ATTN.launches
+    got = paged_attention.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_attention.PAGED_ATTN.launches == before + 1
+    want = paged_attention.paged_attention_reference(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_paged_attention_kernel_is_deterministic(cuda):
+    """A fixed accumulation order: two launches are bit-equal."""
+    args = paged_inputs(4, 64, 16, 4, 64, 16, [900, 300, 5, 0],
+                        torch.bfloat16, seed=9)
+    first = paged_attention.paged_attention(*args)
+    second = paged_attention.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

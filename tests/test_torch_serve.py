@@ -206,7 +206,8 @@ def _reference_families():
     modules define."""
     names = set()
     for f in ("models/serve_engine.py", "models/serve_batch.py",
-              "models/serve_http.py", "obs/ledger.py"):
+              "models/serve_http.py", "models/kv_cache.py",
+              "obs/ledger.py"):
         with open(os.path.join(REF_PKG, f)) as fh:
             names |= set(re.findall(r'"(tpu_serve_[a-z_]+)"', fh.read()))
     return names
@@ -281,9 +282,13 @@ def test_daemon_main_serves_the_reference_surface(servers):
         code, text = _get(port, "/metrics")
         fams = _families(text)
         assert code == 200
+        # The daemon's default KV layout is paged, as the reference's:
+        # its prefills are chunks, counted under tpu_serve_phase_seconds
+        # and the tpu_serve_kv_* families, not the rows engine's
+        # tpu_serve_prefill_bucket_total.
         assert {"tpu_serve_ttft_seconds", "tpu_serve_requests_total",
                 "tpu_serve_decode_step_seconds",
-                "tpu_serve_prefill_bucket_total",
+                "tpu_serve_kv_pages_in_use_count",
                 "tpu_serve_jit_compiles_total",
                 "tpu_serve_phase_seconds"} <= fams
         assert fams <= _reference_families()
