@@ -24,11 +24,13 @@ exits non-zero without a result:
   pages of 16): device busy time, idle share, the largest kernels.
 - ``kernel_paged``: the paged-attention kernel B2 against the plain
   paged read on the card (PAGED_CASES: decode steps and prefill chunks
-  at the serving default with ragged row lengths up to 1024, GQA, MQA,
-  pages of 8 and 16, rows on the scratch page, d = 128 and 256; the
-  tolerances in PAGED_TOL), two launches bit-equal; CUDA-event times of
-  B2, the plain version and SDPA over already-gathered K/V (a yardstick
-  that skips the page indirection), beside B2's bound by bytes.
+  at the serving default with ragged row lengths up to 1024, the
+  profile's 4 rows at 1000 tokens, rows on split boundaries, GQA, MQA,
+  pages of 8 and 16, rows on the scratch page, d = 128 and 256 on both
+  routes; the tolerances in PAGED_TOL), two launches bit-equal; each
+  case's route and splits (paged_attn_plan); CUDA-event times of B2, the
+  plain version and SDPA over already-gathered K/V (a yardstick that
+  skips the page indirection), beside B2's bound by bytes.
 - ``serve``: the llm-serve daemon (models/serve_http.main) in-process
   on a free port at the full-width default config, bf16, rows KV,
   --max-batch 4, warmed up: concurrent completions of mixed prompt
@@ -162,14 +164,27 @@ def _jline(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            queued: bool = True) -> float:
     """Mean device time of ``fn`` in ms over ``iters`` launches (CUDA
-    events around the whole run, after ``warmup`` calls)."""
+    events around the whole run, after ``warmup`` calls). The launches
+    queue behind a sleep kernel that outlasts their enqueueing, so a
+    kernel shorter than its wrapper's host time is timed on the device,
+    not at the host's pace. ``queued=False`` leaves the sleep out (the
+    host-paced timer of earlier revisions of this script, kept to compare
+    revisions with it)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if queued:
+        # ~2 GHz: twice the calls' host time, at least 1 ms
+        torch.cuda._sleep(int(4e9 * max(1e-3, iters * host_s)))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -248,8 +263,8 @@ _TYPE_ARGS = {"f": "float", "13__nv_bfloat16": "bf16"}
 
 def _demangle_kernel(mangled: str) -> str:
     """``..21flash_fwd_bf16_kernelILi128ELb1EE..`` -> ``flash_fwd_bf16_kernel
-    <128,1>``, ``..17paged_attn_kernelI13__nv_bfloat16Li64EE..`` ->
-    ``paged_attn_kernel<bf16,64>`` (Itanium names carry their length
+    <128,1>``, ``..24paged_attn_decode_kernelI13__nv_bfloat16Li64EE..`` ->
+    ``paged_attn_decode_kernel<bf16,64>`` (Itanium names carry their length
     before them)."""
     for m in re.finditer(r"\d+", mangled):
         for i in range(len(m.group())):  # the length may follow other digits
@@ -499,11 +514,29 @@ PAGED_CASES = [
      "bfloat16"),
     ("d256_chunk_L8_p16_bf16", 2, 8, 8, 4, 256, 16, (700, 3), "bfloat16"),
     ("d256_decode_p16_f32", 2, 1, 8, 8, 256, 16, (511, -1), "float32"),
+    # the profile's decode step: 4 rows at 1000 tokens
+    ("decode_b4_1000_p16_bf16", 4, 1, 16, 16, 64, 16, (1000,) * 4,
+     "bfloat16"),
+    # rows whose keys end on a split's last key (128 keys a split here),
+    # start the next split, or sit at position 0
+    ("edge_decode_b4_p16_bf16", 4, 1, 16, 16, 64, 16, (127, 255, 0, 1023),
+     "bfloat16"),
+    ("edge_chunk_b4_L64_p16_bf16", 4, 64, 16, 16, 64, 16, (64, 128, 0, 960),
+     "bfloat16"),
+    ("edge_decode_b4_p16_f32", 4, 1, 16, 16, 64, 16, (127, 128, 0, 1023),
+     "float32"),
+    # d = 256 on the chunk route; GQA with 64 query rows a kv head
+    ("d256_chunk_L16_p16_bf16", 2, 16, 8, 8, 256, 16, (700, 3), "bfloat16"),
+    ("gqa_chunk_L8_n8_p16_bf16", 4, 8, 16, 2, 128, 16, (1000, 500, 60, 0),
+     "bfloat16"),
 ]
 # B2 against the plain paged read. float32: summation order only (fp32
 # products on both sides). bfloat16: the plain version rounds the scores
 # and the probabilities to bf16 (as the reference's gather does), B2 keeps
-# them in fp32; outputs are rounded to bf16.
+# them in fp32; outputs are rounded to bf16. bfloat16 outputs are also
+# held row by row against the read in float32 from the same operands
+# (paged_attention_fp32, P rounded on the chunk route), within
+# PAGED_BF16_ROW_TOL of each row's largest value (ops/paged_attention.py).
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
@@ -518,8 +551,9 @@ def paged_case_inputs(b, L, h, kvh, d, page_tokens, lens, dtype, gen):
     W = -(-span // page_tokens) + 1
     pool_pages = 1 + b * W
     perm = torch.randperm(pool_pages - 1, generator=gen) + 1
-    bt = torch.zeros((b, W), dtype=torch.int32)
-    q_pos = torch.zeros((b, L), dtype=torch.int32)
+    # int64, as the serving engine hands them to B2
+    bt = torch.zeros((b, W), dtype=torch.int64)
+    q_pos = torch.zeros((b, L), dtype=torch.int64)
     live = 0
     for r, n in enumerate(lens):
         q_pos[r] = max(n, 0) + torch.arange(L)
@@ -544,8 +578,9 @@ def paged_bound_ms(b, L, h, kvh, d, page_tokens, live_pages, dtype,
     import torch
 
     esize = torch.empty((), dtype=dtype).element_size()
-    nbytes = esize * (2 * live_pages * page_tokens * kvh * d
-                      + 2 * b * L * h * d) + 4 * q_pos.numel()
+    nbytes = (esize * (2 * live_pages * page_tokens * kvh * d
+                       + 2 * b * L * h * d)
+              + q_pos.element_size() * q_pos.numel())
     visible = float((q_pos.double() + 1).sum().item()) * h
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 4.0 * d * visible / PEAK_OPS_PER_S[str(dtype)]
@@ -565,12 +600,14 @@ def phase_paged_kernel() -> tuple[dict, dict]:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(5)
-    cases, worst = [], 0.0
+    cases, worst, worst_row = [], 0.0, 0.0
     for name, b, L, h, kvh, d, page_tokens, lens, dt in PAGED_CASES:
         dtype = getattr(torch, dt)
         q, kp, vp, bt, q_pos, live = paged_case_inputs(
             b, L, h, kvh, d, page_tokens, lens, dtype, gen)
         args = (q, kp, vp, bt, q_pos)
+        plan = pa.paged_attn_plan(b, L, h, kvh, d, page_tokens,
+                                  bt.shape[1], dtype)
         out = pa.paged_attention_cuda(*args)
         again = pa.paged_attention_cuda(*args)
         torch.cuda.synchronize()
@@ -581,6 +618,16 @@ def phase_paged_kernel() -> tuple[dict, dict]:
                                  f"over tolerance {PAGED_TOL[dt]}")
         if not torch.equal(out, again):
             raise AssertionError(f"paged {name}: two launches differ")
+        row_err = row_tol = None
+        if dtype == torch.bfloat16:
+            row_tol = pa.PAGED_BF16_ROW_TOL
+            row_err = pa.row_rel_err(out, pa.paged_attention_fp32(
+                *args, round_p=plan.route == "chunk"))
+            if row_err > row_tol:
+                raise AssertionError(
+                    f"paged {name}: row |B2 - fp32 read| / row max "
+                    f"{row_err:.3g} over {row_tol}")
+            worst_row = max(worst_row, row_err)
         worst = max(worst, err)
         # The yardstick: SDPA over each row's gathered [W·P] keys with the
         # position mask, q heads over expanded kv heads.
@@ -595,7 +642,10 @@ def phase_paged_kernel() -> tuple[dict, dict]:
         row = {
             "case": name, "shape": [b, L, h, kvh, d], "page_tokens":
             page_tokens, "lens": list(lens), "dtype": dt,
+            "route": plan.route, "n_splits": plan.n_splits,
+            "keys_per_split": plan.keys_per_split, "blocks": plan.blocks,
             "max_abs_err": err, "tol": PAGED_TOL[dt],
+            "row_rel_err": row_err, "row_tol": row_tol,
             "bit_equal_launches": True, "live_pages": live,
             "ms": cuda_ms(lambda: pa.paged_attention_cuda(*args)),
             "host_ms": host_ms(lambda: pa.paged_attention_cuda(*args)),
@@ -614,15 +664,17 @@ def phase_paged_kernel() -> tuple[dict, dict]:
     summary = {
         "name": pa.PAGED_ATTN.name, "route": "cuda",
         "source": pa.PAGED_ATTN.source, "replaces": pa.PAGED_ATTN.replaces,
-        "max_abs_err": worst, "ms": main["ms"],
+        "max_abs_err": worst, "max_row_rel_err_bf16": worst_row,
+        "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "library": "scaled_dot_product_attention over pre-gathered K/V "
                    "(a yardstick: it skips the page indirection)",
         "timed_case": main["case"], "host_ms": main["host_ms"],
+        "timed_route": main["route"], "n_splits": main["n_splits"],
         "chunk_case": {k: chunk[k] for k in (
-            "case", "ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "bound_share")},
+            "case", "route", "n_splits", "ms", "host_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "bound_share")},
     }
     return {"phase": "kernel_paged", "ok": True, "cases": cases}, summary
 
@@ -1083,6 +1135,12 @@ def phase_serve_paged(counters) -> dict:
                 f"serve_paged: launches {launches}; want paged_attn = "
                 f"{layers} layers x ({chunks} chunks + {segments} segments "
                 f"x {batcher.segment} steps) = {want}, flash_fwd = 0")
+        # B2's combine runs after each launch whose plan splits the keys:
+        # at least the long rows' decode steps, never more than B2 itself.
+        if not 0 < launches["paged_attn_combine"] <= want:
+            raise AssertionError(f"serve_paged: combine launches "
+                                 f"{launches['paged_attn_combine']}, want "
+                                 f"1 .. {want}")
     finally:
         httpd.shutdown()
         daemon.join(timeout=120)
@@ -1338,9 +1396,12 @@ def main() -> int:
     _jline(serve)
     summary["launches"] = serve["launches"]["flash_fwd"]
     serve_paged = phase_serve_paged([attention.FLASH_FWD,
-                                     paged_attention.PAGED_ATTN])
+                                     paged_attention.PAGED_ATTN,
+                                     paged_attention.PAGED_ATTN_COMBINE])
     _jline(serve_paged)
     paged_summary["launches"] = serve_paged["launches"]["paged_attn"]
+    paged_summary["combine_launches"] = \
+        serve_paged["launches"]["paged_attn_combine"]
     train = phase_train()
     _jline(train)
     launches = train["benchmark"]["launches"]

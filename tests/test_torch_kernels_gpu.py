@@ -332,13 +332,14 @@ def paged_inputs(batch, L, heads, kv_heads, d, page_tokens, lens, dtype,
     """Pools of random pages, each row's pages in a scrambled order, and
     q at positions lens + arange(L); a row with lens[r] < 0 has every
     table slot on scratch page 0 (at positions 0 .. L - 1). Returns (q,
-    k_pages, v_pages, bt, q_pos) on the card."""
+    k_pages, v_pages, bt, q_pos) on the card, the table and positions
+    int64 as the serving engine holds them."""
     rng = np.random.default_rng(seed)
     span = max(max(lens) + L, L)
     W = -(-span // page_tokens)
     pool_pages = 1 + batch * W
     perm = rng.permutation(np.arange(1, pool_pages)).reshape(batch, W)
-    bt = np.where(np.asarray(lens)[:, None] < 0, 0, perm).astype(np.int32)
+    bt = np.where(np.asarray(lens)[:, None] < 0, 0, perm).astype(np.int64)
     q_pos = np.maximum(np.asarray(lens), 0)[:, None] + np.arange(L)
 
     def rand(*shape):
@@ -349,7 +350,7 @@ def paged_inputs(batch, L, heads, kv_heads, d, page_tokens, lens, dtype,
             rand(pool_pages, page_tokens, kv_heads, d),
             rand(pool_pages, page_tokens, kv_heads, d),
             torch.from_numpy(bt).cuda(),
-            torch.from_numpy(q_pos.astype(np.int32)).cuda())
+            torch.from_numpy(q_pos.astype(np.int64)).cuda())
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -361,29 +362,119 @@ def paged_inputs(batch, L, heads, kv_heads, d, page_tokens, lens, dtype,
     (5, 8, 1, 64, 8),        # MQA, a short chunk
     (3, 4, 2, 256, 16),      # d = 256
     (2, 4, 4, 16, 8),        # the tiny config's head dim
+    (8, 16, 2, 128, 16),     # GQA chunk: n_rep * L = 64 query rows
+    (32, 16, 4, 64, 16),     # GQA chunk over two 64-row query tiles
+    (1, 32, 2, 64, 16),      # GQA decode with 16 q heads a kv head
+    (16, 8, 8, 256, 16),     # d = 256 on the chunk route (bf16)
+    (64, 8, 8, 24, 16),      # d = 24: a 16-column step half zero-filled
 ])
 def test_paged_attention_kernel_matches_plain(cuda, L, heads, kv_heads, d,
                                               page_tokens, dtype, tol):
     """B2 against the plain paged read on the same pools and tables:
-    ragged row lengths up to 1000, one row all on scratch page 0."""
+    ragged row lengths up to 1000, one row all on scratch page 0. bf16
+    with n_rep * L >= 16 takes the chunk route (tensor-core tiles), the
+    rest the decode route (paged_attn_plan). bf16 is also held row by row
+    against the read in float32 from the same operands (P rounded on the
+    chunk route), where a mis-weighted split shows on a long row. The
+    combine is counted when the plan splits the keys."""
     lens = [1000, 37, 0, -1]
     args = paged_inputs(4, L, heads, kv_heads, d, page_tokens, lens, dtype,
                         seed=d + L)
+    plan = paged_attention.paged_attn_plan(4, L, heads, kv_heads, d,
+                                           page_tokens, args[3].shape[1],
+                                           dtype)
     before = paged_attention.PAGED_ATTN.launches
+    combined = paged_attention.PAGED_ATTN_COMBINE.launches
     got = paged_attention.paged_attention(*args)
     torch.cuda.synchronize()
     assert paged_attention.PAGED_ATTN.launches == before + 1
+    assert paged_attention.PAGED_ATTN_COMBINE.launches == combined + int(
+        plan.n_splits > 1)
     want = paged_attention.paged_attention_reference(*args)
     assert got.dtype == dtype and got.shape == want.shape
     assert torch.isfinite(got).all()
     assert (got.float() - want.float()).abs().max().item() <= tol
+    if dtype == torch.bfloat16:
+        close = paged_attention.paged_attention_fp32(
+            *args, round_p=plan.route == "chunk")
+        assert paged_attention.row_rel_err(got, close) <= \
+            paged_attention.PAGED_BF16_ROW_TOL
 
 
-def test_paged_attention_kernel_is_deterministic(cuda):
-    """A fixed accumulation order: two launches are bit-equal."""
-    args = paged_inputs(4, 64, 16, 4, 64, 16, [900, 300, 5, 0],
-                        torch.bfloat16, seed=9)
+@pytest.mark.parametrize("L,dtype", [(64, torch.bfloat16),
+                                     (1, torch.bfloat16),
+                                     (1, torch.float32)])
+def test_paged_attention_kernel_is_deterministic(cuda, L, dtype):
+    """A fixed accumulation order (tiles, reduction trees, the combine in
+    split order, no atomics): two launches are bit-equal on both
+    routes."""
+    args = paged_inputs(4, L, 16, 4, 64, 16, [900, 300, 5, 0], dtype,
+                        seed=9)
+    plan = paged_attention.paged_attn_plan(4, L, 16, 4, 64, 16,
+                                           args[3].shape[1], dtype)
+    assert plan.n_splits > 1
     first = paged_attention.paged_attention(*args)
     second = paged_attention.paged_attention(*args)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("L,dtype,tol", [(1, torch.bfloat16, 2e-2),
+                                         (64, torch.bfloat16, 2e-2),
+                                         (1, torch.float32, 1e-5)])
+def test_paged_attention_kernel_split_edges(cuda, L, dtype, tol):
+    """Rows whose keys end on the last key of a split, start a split,
+    sit at position 0, and one on scratch page 0: the splits past each
+    row's last key are empty and weigh nothing (bf16 also row by row
+    against the float32 read)."""
+    args = list(paged_inputs(4, L, 16, 16, 64, 16, [1000, 0, 0, -1],
+                             dtype, seed=L))
+    plan = paged_attention.paged_attn_plan(4, L, 16, 16, 64, 16,
+                                           args[3].shape[1], dtype)
+    kps = plan.keys_per_split
+    assert plan.n_splits >= 3
+    ar = torch.arange(L, device="cuda", dtype=torch.int64)
+    args[4][0] = kps - L + ar           # ends on split 0's last key
+    args[4][1] = kps + ar               # starts split 1
+    args[4][2] = 2 * kps - 1 + ar       # from split 1's last key on
+    got = paged_attention.paged_attention(*args)
+    torch.cuda.synchronize()
+    want = paged_attention.paged_attention_reference(*args)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    if dtype == torch.bfloat16:
+        close = paged_attention.paged_attention_fp32(
+            *args, round_p=plan.route == "chunk")
+        assert paged_attention.row_rel_err(got, close) <= \
+            paged_attention.PAGED_BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("L", [1, 64])
+def test_paged_attention_kernel_replays_in_a_cuda_graph(cuda, L):
+    """B2's grid and workspace depend on shapes only: a launch captured
+    in a CUDA graph, replayed after bt and q_pos change in place (new
+    pages, new lengths), equals an eager launch on the new tables."""
+    args = paged_inputs(4, L, 16, 16, 64, 16, [1000, 300, 17, 0],
+                        torch.bfloat16, seed=L + 1)
+    q, kp, vp, bt, q_pos = args
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_attention.paged_attention(q, kp, vp, bt, q_pos)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_attention.paged_attention(q, kp, vp, bt, q_pos)
+    rng = np.random.default_rng(L)
+    bt.copy_(torch.from_numpy(
+        rng.permutation(bt.cpu().numpy().ravel()).reshape(bt.shape)))
+    new_lens = torch.tensor([40, 990, 0, 511], device="cuda")
+    q_pos.copy_(new_lens[:, None] + torch.arange(L, device="cuda"))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = paged_attention.paged_attention(q, kp, vp, bt, q_pos)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    plain = paged_attention.paged_attention_reference(q, kp, vp, bt, q_pos)
+    assert (out.float() - plain.float()).abs().max().item() <= 2e-2
