@@ -20,14 +20,18 @@ exits non-zero without a result:
   within atol 0.1 / rtol 0.05 in bfloat16.
 - ``profile``: torch.profiler over one admission prefill and one decode
   segment at the serving default (rows KV), and over one 64-token paged
-  prefill chunk and one paged decode segment (4 rows at ~1000 tokens,
-  pages of 16): device busy time, idle share, the largest kernels.
+  prefill chunk, one paged decode segment and one paged speculative
+  segment (2-layer self-draft, k = 4; 4 rows at ~1000 tokens, pages of
+  16): device busy time, idle share, launches, host reads (the spec
+  segment's must be one a verify round plus the entry test), the
+  largest kernels.
 - ``kernel_paged``: the paged-attention kernel B2 against the plain
   paged read on the card (PAGED_CASES: decode steps and prefill chunks
   at the serving default with ragged row lengths up to 1024, the
   profile's 4 rows at 1000 tokens, rows on split boundaries, GQA, MQA,
   pages of 8 and 16, rows on the scratch page, d = 128 and 256 on both
-  routes; the tolerances in PAGED_TOL), two launches bit-equal; each
+  routes, the speculative verify block at L = 4 for MHA and GQA; the
+  tolerances in PAGED_TOL), two launches bit-equal; each
   case's route and splits (paged_attn_plan); CUDA-event times of B2, the
   plain version and SDPA over already-gathered K/V (a yardstick that
   skips the page indirection), beside B2's bound by bytes.
@@ -41,6 +45,17 @@ exits non-zero without a result:
   the first's page-aligned prefix; a prefix hit, copy-on-extend page
   copies, B2 launched exactly layers x (prefill chunks + decode steps)
   and B1 never over this traffic, /healthz, /metrics, a clean drain.
+- ``serve_spec``: speculative decoding. float32 at the full-width
+  default config: greedy tokens of ``complete_batch_spec`` and of paged
+  and rows ContinuousBatchers with a 2-layer self-draft at k = 4
+  identical to the plain paths', each with verify rounds; a perfect
+  draft (draft = target) identical too, with more than one token a row
+  a round. Then the daemon at its default with ``--draft-layers 2
+  --speculative-k 4`` over serve_paged's prompts, all greedy: /healthz's
+  speculative block, the tpu_serve_speculative_* families, B2 launched
+  exactly layers x (chunks + plain decode steps) + verify rounds x (k x
+  draft layers + layers), aggregate tokens/s, and the share of its bf16
+  tokens the plain paged path agrees with.
 - ``kernel_bwd``: the backward kernels B3 (dQ) and B4 (dK/dV) through
   ``FlashAttention.backward`` against the plain backward on the same
   inputs, random output and lse cotangents, at the training shapes and
@@ -529,6 +544,13 @@ PAGED_CASES = [
     ("d256_chunk_L16_p16_bf16", 2, 16, 8, 8, 256, 16, (700, 3), "bfloat16"),
     ("gqa_chunk_L8_n8_p16_bf16", 4, 8, 16, 2, 128, 16, (1000, 500, 60, 0),
      "bfloat16"),
+    # the speculative verify block at k = 4 over the serving default: MHA
+    # (4 query rows a kv head: the decode route in bf16 with L > 1) and
+    # GQA with 4 q heads a kv head (16 rows: the chunk route's minimum)
+    ("verify_b4_L4_p16_bf16", 4, 4, 16, 16, 64, 16, (1019, 700, 301, 37),
+     "bfloat16"),
+    ("verify_gqa_L4_p16_bf16", 4, 4, 16, 4, 64, 16, (1019, 700, 301, 37),
+     "bfloat16"),
 ]
 # B2 against the plain paged read. float32: summation order only (fp32
 # products on both sides). bfloat16: the plain version rounds the scores
@@ -661,6 +683,9 @@ def phase_paged_kernel() -> tuple[dict, dict]:
         del args, q, kp, vp, kc, vc, qs, out, again, want
     torch.cuda.empty_cache()
     main, chunk = cases[0], cases[1]
+    by_name = {c["case"]: c for c in cases}
+    keys = ("case", "route", "n_splits", "ms", "host_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "bound_share")
     summary = {
         "name": pa.PAGED_ATTN.name, "route": "cuda",
         "source": pa.PAGED_ATTN.source, "replaces": pa.PAGED_ATTN.replaces,
@@ -672,9 +697,9 @@ def phase_paged_kernel() -> tuple[dict, dict]:
                    "(a yardstick: it skips the page indirection)",
         "timed_case": main["case"], "host_ms": main["host_ms"],
         "timed_route": main["route"], "n_splits": main["n_splits"],
-        "chunk_case": {k: chunk[k] for k in (
-            "case", "route", "n_splits", "ms", "host_ms", "plain_ms",
-            "library_ms", "bound_ms", "bound_by", "bound_share")},
+        "chunk_case": {k: chunk[k] for k in keys},
+        "verify_cases": [{k: by_name[n][k] for k in keys} for n in (
+            "verify_b4_L4_p16_bf16", "verify_gqa_L4_p16_bf16")],
     }
     return {"phase": "kernel_paged", "ok": True, "cases": cases}, summary
 
@@ -772,13 +797,22 @@ def _device_events(prof):
     return sorted(out, key=lambda x: -x[1])
 
 
+def _host_reads(prof) -> int:
+    """Device-to-host reads the host waited on (``aten::_local_scalar_dense``:
+    ``.item()``, ``bool()`` of a CUDA tensor)."""
+    return sum(e.count for e in prof.key_averages()
+               if e.key == "aten::_local_scalar_dense")
+
+
 def phase_profile() -> dict:
     """Device time of one admission prefill ([4 rows, 1024 tokens]) and
     one 16-token decode segment over 4 rows at the serving default
-    (bf16, rows KV), and of one paged prefill chunk and one paged decode
-    segment at the same width, under torch.profiler: busy time, idle
-    share of the wall time, the largest kernels and the flash (B1) and
-    paged (B2) kernels' shares."""
+    (bf16, rows KV), of one paged prefill chunk and one paged decode
+    segment at the same width, and of one 16-token paged speculative
+    segment there (2-layer self-draft, k = 4), under torch.profiler:
+    busy time, idle share of the wall time, launches, host reads, the
+    largest kernels and the flash (B1) and paged (B2) kernels'
+    shares."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -819,19 +853,31 @@ def phase_profile() -> dict:
         return srv.paged_decode_segment(ppool, bt, tok, 1000 * ones, gen,
                                         temp, topk, seg)
 
+    # The speculative segment over the same rows: each row's budget is
+    # the segment; the verify block writes up to position 1019.
+    srv.enable_draft(SPEC_DRAFT_LAYERS, k=SPEC_K)
+
+    def paged_spec():
+        return srv.paged_spec_segment(ppool, bt, tok, 1000 * ones,
+                                      seg * ones, seg)
+
     decode()
     paged_chunk()
     paged_decode()
+    paged_spec()
     torch.cuda.synchronize()
     res = {"phase": "profile", "rows": rows, "prompt_tokens": lb,
            "segment": seg, "paged": {"page_tokens": page_tokens,
                                      "table_width": width,
                                      "chunk_positions": [960, 1023],
-                                     "decode_from": 1000}}
+                                     "decode_from": 1000},
+           "spec": {"draft_layers": SPEC_DRAFT_LAYERS, "k": SPEC_K}}
     for name, fn in (("prefill", prefill), ("decode_segment", decode),
                      ("paged_prefill_chunk", paged_chunk),
-                     ("paged_decode_segment", paged_decode)):
+                     ("paged_decode_segment", paged_decode),
+                     ("paged_spec_segment", paged_spec)):
         torch.cuda.synchronize()
+        srv.reset_spec_stats()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -848,8 +894,30 @@ def phase_profile() -> dict:
             "flash_fwd_ms": flash, "paged_attn_ms": paged,
             "kernels": len(events),
             "launches": sum(n for _, _, n in events),
+            "paged_attn_launches": sum(
+                n for k, _, n in events if "paged_attn" in k
+                and "combine" not in k),
+            "host_reads": _host_reads(prof),
+            "verify_rounds": srv.spec_stats_snapshot()["verify_rounds"],
             "top": [[k[:80], ms, n] for k, ms, n in events[:6]],
         }
+    spec, plain = res["paged_spec_segment"], res["paged_decode_segment"]
+    rounds = spec["verify_rounds"]
+    want = rounds * (SPEC_K * SPEC_DRAFT_LAYERS + srv.config.num_layers)
+    if not 0 < rounds <= seg or spec["paged_attn_launches"] != want:
+        raise AssertionError(
+            f"profile: spec segment ran {rounds} rounds and "
+            f"{spec['paged_attn_launches']} B2 launches, want {want}")
+    # one read a round (the loop test after it) and the entry test
+    if spec["host_reads"] != rounds + 1:
+        raise AssertionError(
+            f"profile: {spec['host_reads']} host reads in the spec segment "
+            f"of {rounds} rounds, want {rounds + 1}")
+    # every row's budget is the segment: the slowest row's own tokens a
+    # round, above 1 only where it accepted drafts
+    spec["row_tokens_per_round"] = seg / rounds
+    spec["wall_vs_plain"] = spec["wall_ms"] / plain["wall_ms"]
+    spec["busy_vs_plain"] = spec["device_busy_ms"] / plain["device_busy_ms"]
     res["ok"] = True
     del srv, pool, ppool
     torch.cuda.empty_cache()
@@ -890,30 +958,9 @@ SERVE_MAX_TOKENS = 48
 def phase_serve(counters) -> dict:
     """The daemon in-process: concurrent completions through the
     entry point a user runs, with the kernels' counts over the traffic."""
-    from k8s_device_plugin_tpu_torch.models import serve_http
-
-    ready = threading.Event()
-    handle = {}
-
-    def on_ready(httpd, batcher):
-        handle["httpd"], handle["batcher"] = httpd, batcher
-        ready.set()
-
-    rc = {}
-    daemon = threading.Thread(
-        target=lambda: rc.setdefault("rc", serve_http.main(
-            ["--port", "0", "--kv-cache", "rows", "--max-batch", "4"],
-            on_ready=on_ready)),
-        name="llm-serve-main", daemon=True,
-    )
-    t_start = time.perf_counter()
-    daemon.start()
-    if not ready.wait(600):
-        raise AssertionError("serve: daemon not ready in 600 s")
-    startup_s = time.perf_counter() - t_start
-    httpd = handle["httpd"]
-    port = httpd.server_address[1]
-    try:
+    with _daemon(["--kv-cache", "rows", "--max-batch", "4"], "serve") as (
+            httpd, batcher, startup_s):
+        port = httpd.server_address[1]
         _, before = _get(port, "/metrics")
         prefills0 = _metric_sum(before, "tpu_serve_prefill_bucket_total")
         for c in counters:
@@ -976,17 +1023,12 @@ def phase_serve(counters) -> dict:
             completions.append(n_out)
             ttfts.append(doc["ttft_seconds"])
             rates.append((n_out - 1) / max(e2e - doc["ttft_seconds"], 1e-9))
-        n_layers = handle["batcher"].server.config.num_layers
+        n_layers = batcher.server.config.num_layers
         flash = launches["flash_fwd"]
         if prefills < 1 or flash < n_layers * prefills:
             raise AssertionError(
                 f"serve: flash_fwd launched {flash} times for "
                 f"{prefills} admission prefills of {n_layers} layers")
-    finally:
-        httpd.shutdown()
-        daemon.join(timeout=120)
-    if daemon.is_alive() or rc.get("rc") != 0:
-        raise AssertionError(f"serve: drain not clean (rc {rc})")
     return {
         "phase": "serve", "ok": True, "startup_s": startup_s,
         "prompt_lens": list(SERVE_PROMPT_LENS),
@@ -1021,12 +1063,11 @@ PAGED_PROMPTS = (
 )
 
 
-def phase_serve_paged(counters) -> dict:
-    """The daemon in-process at its default (paged KV, full-width config,
-    bf16, --max-batch 4), warmed up: concurrent completions, a prefix
-    hit, copy-on-extend of shared tail pages, and B2 launched exactly
-    layers x (prefill chunks + decode steps) over this traffic, B1
-    never."""
+@contextlib.contextmanager
+def _daemon(argv, what: str):
+    """The llm-serve daemon (models/serve_http.main) in-process on a free
+    port, warmed up: yields (httpd, batcher, startup seconds), then shuts
+    it down and fails unless it drained clean."""
     from k8s_device_plugin_tpu_torch.models import serve_http
 
     ready = threading.Event()
@@ -1039,60 +1080,106 @@ def phase_serve_paged(counters) -> dict:
     rc = {}
     daemon = threading.Thread(
         target=lambda: rc.setdefault("rc", serve_http.main(
-            ["--port", "0", "--max-batch", "4"], on_ready=on_ready)),
-        name="llm-serve-paged-main", daemon=True,
+            ["--port", "0", *argv], on_ready=on_ready)),
+        name=f"llm-serve-{what}", daemon=True,
     )
     t_start = time.perf_counter()
     daemon.start()
     if not ready.wait(600):
-        raise AssertionError("serve_paged: daemon not ready in 600 s")
-    startup_s = time.perf_counter() - t_start
-    httpd, batcher = handle["httpd"], handle["batcher"]
-    port = httpd.server_address[1]
+        raise AssertionError(f"{what}: daemon not ready in 600 s")
     try:
+        yield (handle["httpd"], handle["batcher"],
+               time.perf_counter() - t_start)
+    finally:
+        handle["httpd"].shutdown()
+        daemon.join(timeout=120)
+    if daemon.is_alive() or rc.get("rc") != 0:
+        raise AssertionError(f"{what}: drain not clean (rc {rc})")
+
+
+def _paged_traffic(port: int, what: str, logprobs: bool):
+    """PAGED_PROMPTS at once, SERVE_MAX_TOKENS each: the first streamed,
+    the last sent once the first has its first token (its prefix is then
+    published); the others with ``"logprobs": 1`` when ``logprobs``.
+    Returns (the final JSON of each, completion tokens, TTFTs, wall s)."""
+    results = [None] * len(PAGED_PROMPTS)
+    published = threading.Event()
+
+    def one(i):
+        body = {"prompt": PAGED_PROMPTS[i],
+                "max_tokens": SERVE_MAX_TOKENS}
+        if i == 0:
+            body["stream"] = True
+        elif logprobs:
+            body["logprobs"] = 1
+        if i == len(PAGED_PROMPTS) - 1:
+            published.wait(300)
+        try:
+            if i == 0:
+                results[i] = _stream_until_first(port, body, published)
+            else:
+                results[i] = _post(port, body)
+        finally:
+            if i == 0:
+                published.set()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(PAGED_PROMPTS))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    docs, completions, ttfts = [], [], []
+    for i, res in enumerate(results):
+        if res is None or res[0] != 200:
+            raise AssertionError(f"{what}: request {i} failed: {res}")
+        doc = res[1] if i == 0 else json.loads(res[1])
+        if i and logprobs:
+            lps = doc["choices"][0]["logprobs"]["token_logprobs"]
+            if not lps or not all(v <= 0.0 and v == v for v in lps):
+                raise AssertionError(f"{what}: bad logprobs {lps[:4]}")
+        if doc["usage"]["completion_tokens"] < 1:
+            raise AssertionError(f"{what}: request {i} decoded nothing")
+        docs.append(doc)
+        completions.append(doc["usage"]["completion_tokens"])
+        ttfts.append(doc["ttft_seconds"])
+    return docs, completions, ttfts, wall
+
+
+def _deltas(before: str, after: str):
+    """``delta(family, label=None)``: a /metrics family's growth between
+    two scrapes (its samples carrying ``label`` when given)."""
+    def delta(family, label=None):
+        if label is not None:
+            return (_metric_labeled(after, family, label)
+                    - _metric_labeled(before, family, label))
+        return _metric_sum(after, family) - _metric_sum(before, family)
+
+    return delta
+
+
+def phase_serve_paged(counters) -> dict:
+    """The daemon in-process at its default (paged KV, full-width config,
+    bf16, --max-batch 4), warmed up: concurrent completions, a prefix
+    hit, copy-on-extend of shared tail pages, and B2 launched exactly
+    layers x (prefill chunks + decode steps) over this traffic, B1
+    never."""
+    with _daemon(["--max-batch", "4"], "serve_paged") as (
+            httpd, batcher, startup_s):
+        port = httpd.server_address[1]
         if batcher.kv_mode != "paged":
             raise AssertionError(f"serve_paged: default KV layout is "
                                  f"{batcher.kv_mode}")
         _, before = _get(port, "/metrics")
         for c in counters:
             c.launches = 0
-        results = [None] * len(PAGED_PROMPTS)
-        published = threading.Event()
-
-        def one(i):
-            body = {"prompt": PAGED_PROMPTS[i],
-                    "max_tokens": SERVE_MAX_TOKENS, "logprobs": 1}
-            if i == 0:
-                body = {"prompt": PAGED_PROMPTS[i],
-                        "max_tokens": SERVE_MAX_TOKENS, "stream": True}
-            if i == len(PAGED_PROMPTS) - 1:
-                published.wait(300)
-            try:
-                if i == 0:
-                    results[i] = _stream_until_first(port, body, published)
-                else:
-                    results[i] = _post(port, body)
-            finally:
-                if i == 0:
-                    published.set()
-
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=one, args=(i,))
-                   for i in range(len(PAGED_PROMPTS))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        wall = time.perf_counter() - t0
+        _, completions, ttfts, wall = _paged_traffic(port, "serve_paged",
+                                                     logprobs=True)
         launches = {c.name: c.launches for c in counters}
         _, after = _get(port, "/metrics")
-
-        def delta(family, label=None):
-            if label is not None:
-                return (_metric_labeled(after, family, label)
-                        - _metric_labeled(before, family, label))
-            return _metric_sum(after, family) - _metric_sum(before, family)
-
+        delta = _deltas(before, after)
         hits = delta("tpu_serve_kv_prefix_lookups_total", 'outcome="hit"')
         copies = delta("tpu_serve_kv_page_copies_total")
         reused = delta("tpu_serve_kv_prefix_tokens_reused_total")
@@ -1109,22 +1196,6 @@ def phase_serve_paged(counters) -> dict:
                     "tpu_serve_ttft_seconds", "tpu_serve_requests_total"):
             if fam not in after:
                 raise AssertionError(f"serve_paged: /metrics lacks {fam}")
-        completions, ttfts = [], []
-        for i, res in enumerate(results):
-            if res is None or res[0] != 200:
-                raise AssertionError(f"serve_paged: request {i} failed: "
-                                     f"{res}")
-            doc = res[1] if i == 0 else json.loads(res[1])
-            if i:
-                lps = doc["choices"][0]["logprobs"]["token_logprobs"]
-                if not lps or not all(v <= 0.0 and v == v for v in lps):
-                    raise AssertionError(f"serve_paged: bad logprobs "
-                                         f"{lps[:4]}")
-            if doc["usage"]["completion_tokens"] < 1:
-                raise AssertionError(f"serve_paged: request {i} decoded "
-                                     f"nothing")
-            completions.append(doc["usage"]["completion_tokens"])
-            ttfts.append(doc["ttft_seconds"])
         layers = batcher.server.config.num_layers
         want = layers * (chunks + segments * batcher.segment)
         if hits < 1 or reused < len(PAGED_PREFIX) or copies < 1:
@@ -1141,11 +1212,6 @@ def phase_serve_paged(counters) -> dict:
             raise AssertionError(f"serve_paged: combine launches "
                                  f"{launches['paged_attn_combine']}, want "
                                  f"1 .. {want}")
-    finally:
-        httpd.shutdown()
-        daemon.join(timeout=120)
-    if daemon.is_alive() or rc.get("rc") != 0:
-        raise AssertionError(f"serve_paged: drain not clean (rc {rc})")
     return {
         "phase": "serve_paged", "ok": True, "startup_s": startup_s,
         "prompt_lens": [len(p) for p in PAGED_PROMPTS],
@@ -1158,6 +1224,203 @@ def phase_serve_paged(counters) -> dict:
         "page_tokens": batcher.kv_config.page_tokens,
         "pool_pages": batcher.kv_config.pool_pages,
         "launches": launches, "drained": True,
+    }
+
+
+# Speculative decoding: a 2-layer self-draft proposing 4 tokens a verify
+# round (--draft-layers 2 --speculative-k 4). Its fp32 exactness runs on
+# random prompts of SPEC_PROMPT_LENS tokens with mixed budgets.
+SPEC_DRAFT_LAYERS = 2
+SPEC_K = 4
+SPEC_PROMPT_LENS = (100, 300, 700, 900)
+SPEC_BUDGETS = (33, 17, 40, 9)
+
+
+def _batcher_tokens(srv, jobs, kv_mode: str):
+    """Token lists of ``jobs`` submitted at once to a fresh
+    ContinuousBatcher over ``srv`` (4 rows, 16-token segments)."""
+    from k8s_device_plugin_tpu_torch.models.serve_batch import (
+        ContinuousBatcher,
+    )
+
+    eng = ContinuousBatcher(srv, max_batch=4, segment_tokens=16,
+                            kv_mode=kv_mode)
+    try:
+        reqs = [eng.submit_async(p, n) for p, n in jobs]
+        return [eng.wait(r, timeout=600)[0] for r in reqs]
+    finally:
+        eng.close()
+
+
+def _first_diff(got, want) -> list:
+    """Per job, the first position where two token lists differ (None
+    where they are equal)."""
+    out = []
+    for g, w in zip(got, want):
+        d = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                 None if len(g) == len(w) else min(len(g), len(w)))
+        out.append(d)
+    return out
+
+
+def _spec_exactness() -> dict:
+    """float32 at full width (default_config, seed-0 weights): plain
+    against speculative tokens through complete_batch_spec and the paged
+    and rows ContinuousBatchers, then with a perfect draft (draft =
+    target), which must accept more than one token a round."""
+    import dataclasses
+
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models.serve_engine import (
+        LMServer,
+        default_config,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    srv = LMServer(config=dataclasses.replace(default_config(),
+                                              dtype=torch.float32),
+                   device="cuda")
+    rng = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, 32000, (n,), generator=rng).tolist()
+               for n in SPEC_PROMPT_LENS]
+    budgets = list(SPEC_BUDGETS)
+    jobs = list(zip(prompts, budgets))
+    plain = {"static": srv.complete_batch(prompts, budgets)[0],
+             "paged": _batcher_tokens(srv, jobs, "paged"),
+             "rows": _batcher_tokens(srv, jobs, "rows")}
+    runs = {
+        "static": lambda: srv.complete_batch_spec(prompts, budgets)[0],
+        "paged": lambda: _batcher_tokens(srv, jobs, "paged"),
+        "rows": lambda: _batcher_tokens(srv, jobs, "rows"),
+    }
+    out = {}
+
+    def spec(name, base):
+        srv.reset_spec_stats()
+        got = runs[base]()
+        st = srv.spec_stats_snapshot()
+        if got != plain[base]:
+            raise AssertionError(
+                f"serve_spec fp32 {name}: speculative tokens differ from "
+                f"plain at {_first_diff(got, plain[base])}")
+        if st["verify_rounds"] < 1:
+            raise AssertionError(f"serve_spec fp32 {name}: no verify round")
+        out[name] = {**st, "tokens_per_round":
+                     st["tokens"] / st["verify_rounds"], "identical": True}
+
+    srv.enable_draft(SPEC_DRAFT_LAYERS, k=SPEC_K)
+    for name in ("static", "paged", "rows"):
+        spec(name, name)
+    # The perfect draft of the reference's tests: every proposal matches,
+    # so rounds accept k tokens and overshoot each budget.
+    srv.draft_model, srv.draft_config = srv.model, srv.config
+    srv._spec_cache.clear()
+    for base in ("static", "paged"):
+        spec(f"perfect_{base}", base)
+    # Tokens a round sum over the rows in flight, so they pass 1 even
+    # when no draft is accepted. Multi-token acceptance shows in the
+    # rounds: the static rows run in lockstep, so without it the longest
+    # row alone needs a round a token; the paged rows are staggered by
+    # chunked prefill, so the random draft's rounds on the same jobs are
+    # the yardstick.
+    longest = max(SPEC_BUDGETS) - 1
+    for name, bar in (("perfect_static", longest),
+                      ("perfect_paged", out["paged"]["verify_rounds"])):
+        if out[name]["tokens_per_round"] <= 1 \
+                or out[name]["verify_rounds"] >= bar:
+            raise AssertionError(f"serve_spec fp32 {name}: {out[name]}, "
+                                 f"want fewer than {bar} rounds")
+    out["paged_equals_static_plain"] = plain["paged"] == plain["static"]
+    del srv
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_spec(counters) -> dict:
+    """Speculative decoding on the card: fp32 exactness at full width
+    (_spec_exactness), then the daemon at its default (paged KV, bf16,
+    --max-batch 4) with --draft-layers 2 --speculative-k 4 over the
+    serve_paged prompts, all greedy without logprobs: /healthz's
+    speculative block, the three tpu_serve_speculative_* families, B2
+    launched exactly layers x (chunks + plain decode steps) + verify
+    rounds x (k x draft layers + layers), B1 never; then the share of
+    its bf16 tokens that the plain paged path (the same requests with
+    logprobs, which never speculate) agrees with."""
+    fp32 = _spec_exactness()
+    argv = ["--max-batch", "4", "--draft-layers", str(SPEC_DRAFT_LAYERS),
+            "--speculative-k", str(SPEC_K)]
+    with _daemon(argv, "serve_spec") as (httpd, batcher, startup_s):
+        port = httpd.server_address[1]
+        srv = batcher.server
+        if batcher.kv_mode != "paged" or srv.spec_k != SPEC_K:
+            raise AssertionError(f"serve_spec: {batcher.kv_mode} KV, "
+                                 f"k {srv.spec_k}")
+        _, before = _get(port, "/metrics")
+        for c in counters:
+            c.launches = 0
+        _, completions, ttfts, wall = _paged_traffic(port, "serve_spec",
+                                                     logprobs=False)
+        launches = {c.name: c.launches for c in counters}
+        _, after = _get(port, "/metrics")
+        delta = _deltas(before, after)
+        chunks = delta("tpu_serve_phase_seconds_count", 'fn="paged_prefill"')
+        plain_segments = delta("tpu_serve_phase_seconds_count",
+                               'fn="paged_segment"')
+        spec_segments = delta("tpu_serve_phase_seconds_count",
+                              'fn="paged_spec_loop"')
+        rounds = delta("tpu_serve_speculative_verify_rounds_total")
+        spec_tokens = delta("tpu_serve_speculative_tokens_total")
+        code, health = _get(port, "/healthz")
+        block = json.loads(health).get("speculative")
+        if code != 200 or not block or block["verify_rounds"] != rounds \
+                or block["tokens"] != spec_tokens:
+            raise AssertionError(f"serve_spec: /healthz {code} {health}, "
+                                 f"{rounds} rounds in /metrics")
+        for fam in ("tpu_serve_speculative_tokens_total",
+                    "tpu_serve_speculative_verify_rounds_total",
+                    "tpu_serve_speculative_accept_ratio"):
+            if f"# TYPE {fam} " not in after:
+                raise AssertionError(f"serve_spec: /metrics lacks {fam}")
+        layers = srv.config.num_layers
+        want = (layers * (chunks + plain_segments * batcher.segment)
+                + rounds * (SPEC_K * SPEC_DRAFT_LAYERS + layers))
+        if rounds < 1 or launches["paged_attn"] != want \
+                or launches["flash_fwd"] != 0:
+            raise AssertionError(
+                f"serve_spec: launches {launches}; want paged_attn = "
+                f"{layers} x ({chunks} chunks + {plain_segments} plain "
+                f"segments x {batcher.segment}) + {rounds} rounds x "
+                f"({SPEC_K} x {SPEC_DRAFT_LAYERS} + {layers}) = {want}, "
+                f"flash_fwd = 0")
+        # bf16 agreement: the same prompts again, all at once, greedy
+        # (speculative) and then with logprobs (the plain segment).
+        ids = [srv.encode_prompt(p) for p in PAGED_PROMPTS]
+        got = {}
+        for kind, kw in (("spec", {}), ("plain", {"logprobs": True})):
+            reqs = [batcher.submit_async(t, SERVE_MAX_TOKENS, **kw)
+                    for t in ids]
+            got[kind] = [batcher.wait(r, timeout=600)[0][len(t):]
+                         for r, t in zip(reqs, ids)]
+        same = sum(a == b for s, p in zip(got["spec"], got["plain"])
+                   for a, b in zip(s, p))
+        total = sum(len(p) for p in got["plain"])
+    return {
+        "phase": "serve_spec", "ok": True, "fp32": fp32,
+        "startup_s": startup_s, "draft_layers": SPEC_DRAFT_LAYERS,
+        "k": SPEC_K, "prompt_lens": [len(p) for p in PAGED_PROMPTS],
+        "max_tokens": SERVE_MAX_TOKENS, "completion_tokens": completions,
+        "wall_s": wall, "ttft_s": ttfts,
+        "aggregate_tokens_per_s": sum(completions) / wall,
+        "healthz_speculative": block, "verify_rounds": rounds,
+        "spec_tokens": spec_tokens, "tokens_per_verify_round":
+        spec_tokens / rounds, "spec_segments": spec_segments,
+        "plain_segments": plain_segments, "prefill_chunks": chunks,
+        "segment_tokens": batcher.segment, "launches": launches,
+        "bf16_agreement": {
+            "share": same / total, "tokens": total,
+            "first_divergence": _first_diff(got["spec"], got["plain"])},
+        "drained": True,
     }
 
 
@@ -1395,13 +1658,18 @@ def main() -> int:
     serve = phase_serve([attention.FLASH_FWD])
     _jline(serve)
     summary["launches"] = serve["launches"]["flash_fwd"]
-    serve_paged = phase_serve_paged([attention.FLASH_FWD,
-                                     paged_attention.PAGED_ATTN,
-                                     paged_attention.PAGED_ATTN_COMBINE])
+    paged_counters = [attention.FLASH_FWD, paged_attention.PAGED_ATTN,
+                      paged_attention.PAGED_ATTN_COMBINE]
+    serve_paged = phase_serve_paged(paged_counters)
     _jline(serve_paged)
     paged_summary["launches"] = serve_paged["launches"]["paged_attn"]
     paged_summary["combine_launches"] = \
         serve_paged["launches"]["paged_attn_combine"]
+    serve_spec = phase_serve_spec(paged_counters)
+    _jline(serve_spec)
+    paged_summary["launches_spec"] = serve_spec["launches"]["paged_attn"]
+    paged_summary["combine_launches_spec"] = \
+        serve_spec["launches"]["paged_attn_combine"]
     train = phase_train()
     _jline(train)
     launches = train["benchmark"]["launches"]

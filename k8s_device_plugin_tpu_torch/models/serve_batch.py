@@ -12,8 +12,13 @@ not a neighbour's whole decode. Two KV layouts, as in the reference:
   prefill, copy-on-extend and SLO-class eviction; every attention read
   runs through the paged kernel B2.
 
-Not ported yet (ROADMAP.md): the static ``Batcher`` (A5), speculative
-segments (A2) and the disaggregated prefill/decode roles (A3).
+With a draft enabled (``LMServer.enable_draft``), all-greedy iterations
+of either layout decode through the speculative verify loop
+(models/speculative.py); any sampled or logprob-wanting row switches the
+iteration to the plain segment.
+
+Not ported yet (ROADMAP.md): the static ``Batcher`` (A5) and the
+disaggregated prefill/decode roles (A3).
 
 The HTTP protocol surface lives in serve_http.py.
 """
@@ -42,6 +47,9 @@ from k8s_device_plugin_tpu_torch.models.serve_engine import (
     _h_decode_step,
     _h_occupancy,
     _h_ttft,
+)
+from k8s_device_plugin_tpu_torch.models.speculative import (
+    draft_cache_from_target,
 )
 from k8s_device_plugin_tpu_torch.obs import flightrec as obs_flightrec
 from k8s_device_plugin_tpu_torch.obs import ledger as obs_ledger
@@ -436,6 +444,22 @@ class ContinuousBatcher(_BatcherBase):
                 max(8, prefill_chunk or 64), 8,
                 cap=server.config.max_seq_len,
             )
+            if server.spec_k is not None:
+                # All-greedy iterations ride the paged spec loop: the
+                # self-draft reads prompt pages through the same tables,
+                # the verify block runs through B2, rewinds are the
+                # host-side row_len rollback.
+                log.info("paged KV mode: speculative verify loop wired "
+                         "into the paged scan (k=%d)", server.spec_k)
+        elif prefill_chunk and server.spec_k is not None:
+            # Genuinely unsupported, so say so — the rows-mode engine
+            # prefills whole prompts in one forward and the rows spec
+            # loop assumes a fully resident cache.
+            raise ValueError(
+                "chunked prefill is a paged-KV feature: speculative "
+                "decoding with kv_mode='rows' prefills whole prompts — "
+                "drop --prefill-chunk or use --kv-cache paged"
+            )
         target = self._loop_paged if kv_mode == "paged" else self._loop
         threading.Thread(target=target, daemon=True,
                          name="llm-serve-engine").start()
@@ -463,6 +487,11 @@ class ContinuousBatcher(_BatcherBase):
     def _loop(self):
         srv = self.server
         pool = None
+        # Speculative companions (spec_k set): the draft model's cache
+        # pool, and each row's true cache length (the spec loop rewinds
+        # indices, so the engine must know where every row really is).
+        d_pool = None
+        rowlen = np.ones((self.rows,), np.int64)
         free = list(range(self.rows))
         live: dict[int, _Request] = {}  # row id -> request
         while True:
@@ -505,11 +534,17 @@ class ContinuousBatcher(_BatcherBase):
                 if got:
                     if pool is None:
                         pool = srv.make_pool_cache(self.rows)
+                        if srv.spec_k is not None:
+                            d_pool = draft_cache_from_target(
+                                pool, srv.draft_config.num_layers
+                            )
                     la0 = self.ledgers.now()
                     with obs_trace.span("serve.engine.admit",
                                         parent=_rep_ctx(got),
                                         journal=False, rows=len(got)):
-                        pool = self._admit(pool, got, free, live)
+                        pool, d_pool = self._admit(
+                            pool, d_pool, got, free, live, rowlen
+                        )
                     self.flight.record(
                         "prefill", rows=len(got),
                         queue_depth=self.q.unfinished_tasks,
@@ -522,7 +557,8 @@ class ContinuousBatcher(_BatcherBase):
                     # Chaos hook: device failure between segments.
                     faults.inject("serve.decode_step", mode="continuous",
                                   rows=len(live))
-                    pool = self._decode(pool, live, free)
+                    pool, d_pool = self._decode(pool, d_pool, rowlen, live,
+                                                free)
             except Exception as e:  # tpulint: disable=TPU001 — engine-thread boundary: the lone decode thread must survive any iteration failure
                 # Device state is suspect: fail everything in flight and
                 # start from a fresh pool.
@@ -538,6 +574,8 @@ class ContinuousBatcher(_BatcherBase):
                 live.clear()
                 free = list(range(self.rows))
                 pool = None
+                d_pool = None
+                rowlen[:] = 1
 
     def _loop_paged(self):
         """Paged-engine thread: admit -> one prefill chunk -> one decode
@@ -619,6 +657,15 @@ class ContinuousBatcher(_BatcherBase):
                 if eng.live:
                     faults.inject("serve.decode_step", mode="paged",
                                   rows=len(eng.live))
+                    # All-greedy iterations ride the paged spec loop
+                    # when a draft is enabled; any sampled or
+                    # logprob-wanting row (or a row whose verify block
+                    # could clamp past capacity) switches the iteration
+                    # to the plain paged segment.
+                    spec_now = eng.spec_ready()
+                    span_attrs = {"rows": len(eng.live)}
+                    if spec_now:
+                        span_attrs["kind"] = "spec"
                     nlive = len(eng.live)
                     slo_rows: dict = {}
                     for rq in eng.live.values():
@@ -627,11 +674,14 @@ class ContinuousBatcher(_BatcherBase):
                     with obs_trace.span(
                         "serve.engine.decode_segment",
                         parent=_rep_ctx(list(eng.live.values())),
-                        journal=False, rows=len(eng.live),
+                        journal=False, **span_attrs,
                     ):
-                        eng.decode_segment_step(self._next_key())
+                        if spec_now:
+                            eng.spec_segment_step()
+                        else:
+                            eng.decode_segment_step(self._next_key())
                     self.flight.record(
-                        "decode_segment",
+                        "spec" if spec_now else "decode_segment",
                         rows=nlive, slo_rows=slo_rows,
                         pages_used=(eng.cfg.pool_pages
                                     - eng.pagepool.free_pages),
@@ -657,8 +707,10 @@ class ContinuousBatcher(_BatcherBase):
                 _g_queue_depth().set(self.q.unfinished_tasks)
                 eng = None
 
-    def _decode(self, pool, live, free):
-        """One decode segment over the pool; retire finished rows."""
+    def _decode(self, pool, d_pool, rowlen, live, free):
+        """One decode segment over the pool (speculative when every live
+        row is greedy and a draft is enabled); retire finished rows.
+        Returns (pool, d_pool); advances ``rowlen`` in place."""
         srv = self.server
         seg_start = time.perf_counter()
         lt0 = self.ledgers.now()
@@ -675,20 +727,55 @@ class ContinuousBatcher(_BatcherBase):
             tok[r, 0] = req.last
             temp[r] = req.temp
             topk[r] = req.topk
+        # All-greedy pools ride the speculative verify loop when a draft
+        # is enabled; any sampled or logprob-wanting row switches the
+        # iteration to the plain segment. A plain iteration leaves the
+        # draft pool stale — harmless: the verify loop only ever emits
+        # the target's own argmax, so staleness costs acceptance, never
+        # tokens.
+        seq_cap = srv.config.max_seq_len
+        spec_now = (
+            srv.spec_k is not None and d_pool is not None
+            and all(rq.temp <= 0 and rq.topk <= 0 and not rq.want_lp
+                    for rq in live.values())
+            # capacity edge (the static path's rule): the k-wide verify
+            # block must never clamp-write past the cache, so rows
+            # nearing the end take plain segments for their last stretch
+            and all(int(rowlen[r]) + min(rq.budget, self.segment)
+                    <= seq_cap - srv.spec_k for r, rq in live.items())
+        )
+        span_attrs = {"rows": len(live)}
+        if spec_now:
+            span_attrs["kind"] = "spec"
         with obs_trace.span(
             "serve.engine.decode_segment",
-            parent=_rep_ctx(live.values()),
-            journal=False, rows=len(live),
+            parent=_rep_ctx(live.values()), journal=False, **span_attrs,
         ):
-            pool, toks, seg_lps = srv.decode_segment(
-                pool, tok, self._next_key(), temp, topk, self.segment,
-            )
-        toks_host = toks.cpu().numpy()  # [segment, rows]
-        # logprob transfer only when someone will read it
-        lps_host = (
-            seg_lps.cpu().numpy()
-            if any(rq.want_lp for rq in live.values()) else None
-        )
+            if spec_now:
+                budgets = np.zeros((self.rows,), np.int64)
+                for r, req in live.items():
+                    budgets[r] = min(req.budget, self.segment)
+                pool, d_pool, out = srv.spec_segment(
+                    pool, d_pool, tok, rowlen, budgets, self.segment,
+                )
+                # [rows, segment] -> [segment, rows]: rows with shorter
+                # budgets leave zeros beyond them, which the per-row
+                # budget cut below never reads.
+                toks_host = out.cpu().numpy().T
+                np.minimum(rowlen + budgets, seq_cap, out=rowlen)
+                lps_host = None  # spec pools never want logprobs
+            else:
+                pool, toks, seg_lps = srv.decode_segment(
+                    pool, tok, self._next_key(), temp, topk, self.segment,
+                )
+                toks_host = toks.cpu().numpy()  # [segment, rows]
+                # the plain segment advances every row by `segment`
+                np.minimum(rowlen + self.segment, seq_cap, out=rowlen)
+                # logprob transfer only when someone will read it
+                lps_host = (
+                    seg_lps.cpu().numpy()
+                    if any(rq.want_lp for rq in live.values()) else None
+                )
         # Segment wall time over its step count: the per-token decode
         # latency --segment-tokens is tuned against.
         _h_decode_step().observe(
@@ -696,9 +783,10 @@ class ContinuousBatcher(_BatcherBase):
             path="continuous",
         )
         lt1 = self.ledgers.now()
+        kind = "spec" if spec_now else "plain"
         self.flight.record(
-            "decode_segment", rows=n_live, slo_rows=slo_rows,
-            queue_depth=self.q.unfinished_tasks,
+            "spec" if spec_now else "decode_segment", rows=n_live,
+            slo_rows=slo_rows, queue_depth=self.q.unfinished_tasks,
             wall_ms=round(max(0.0, lt1 - lt0) * 1e3, 3),
         )
         for r in list(live):
@@ -717,7 +805,7 @@ class ContinuousBatcher(_BatcherBase):
                 if req.budget <= 0:
                     break
             req.ledger.decode_segment(lt0, lt1, tokens=len(seg),
-                                      kind="plain")
+                                      kind=kind)
             if seg:
                 accepted = req.asm.push(seg)
                 req.lps.extend(seg_lp[:accepted])
@@ -739,11 +827,14 @@ class ContinuousBatcher(_BatcherBase):
                 free.append(r)
             else:
                 self._emit(req)
-        return pool
+        return pool, d_pool
 
     def _do_warmup(self):
         srv = self.server
+        spec = srv.spec_k is not None
+        dn = srv.draft_config.num_layers if spec else 0
         pool = srv.make_pool_cache(self.rows)
+        d_pool = draft_cache_from_target(pool, dn) if spec else None
         rows = 1
         while rows <= self.rows:
             lb = srv._prefill_bucket(1)
@@ -756,15 +847,28 @@ class ContinuousBatcher(_BatcherBase):
                     [0] * rows, self._next_key(),
                 )
                 lb = srv._bucket(lb + 1, 128, srv.config.max_seq_len)
+            if spec:  # the draft rows' insert runs per row bucket too
+                d_pool = srv.insert_rows(
+                    d_pool, draft_cache_from_target(cache, dn),
+                    list(range(rows)),
+                )
             pool = srv.insert_rows(pool, cache, list(range(rows)))
             rows *= 2
         if self._auto:
             pool = self._tune_segment(pool)
-        srv.decode_segment(
+        pool, _, _ = srv.decode_segment(
             pool, np.zeros((self.rows, 1), np.int64), self._next_key(),
             np.zeros((self.rows,), np.float32),
             np.zeros((self.rows,), np.int64), self.segment,
         )
+        if spec:
+            srv.spec_segment(
+                pool, d_pool, np.zeros((self.rows, 1), np.int64),
+                np.ones((self.rows,), np.int64),
+                np.ones((self.rows,), np.int64), self.segment,
+            )
+            # warmup decodes must not pollute acceptance telemetry
+            srv.reset_spec_stats()
 
     def _tune_segment(self, pool):
         """Measure dispatch overhead vs per-token cost; pick the
@@ -806,8 +910,9 @@ class ContinuousBatcher(_BatcherBase):
         )
         return pool
 
-    def _admit(self, pool, got, free, live):
-        """Prefill ``got`` into free pool rows; returns the pool."""
+    def _admit(self, pool, d_pool, got, free, live, rowlen):
+        """Prefill ``got`` into free pool rows; returns (pool, d_pool)
+        and sets the rows' ``rowlen``."""
         srv = self.server
         seq = srv.config.max_seq_len
         bucket_rows = srv._bucket(len(got), 1, None)
@@ -833,6 +938,16 @@ class ContinuousBatcher(_BatcherBase):
         # collide with live rows); those rows stay un-live and their
         # garbage is overwritten by the next admission that claims them.
         row_ids = [free.pop(0) for _ in range(bucket_rows)]
+        if d_pool is not None:
+            # the self-draft's prefill rows ARE the target's first layers
+            # (the same K/V, no second forward)
+            d_pool = srv.insert_rows(
+                d_pool,
+                draft_cache_from_target(cache, srv.draft_config.num_layers),
+                row_ids,
+            )
+        for i, r in enumerate(row_ids):
+            rowlen[r] = lens[i]
         pool = srv.insert_rows(pool, cache, row_ids)
         now = time.perf_counter()
         lt1 = self.ledgers.now()
@@ -862,7 +977,7 @@ class ContinuousBatcher(_BatcherBase):
                 live[row_ids[i]] = req
         for i in range(len(got), bucket_rows):  # padding rows: free again
             free.append(row_ids[i])
-        return pool
+        return pool, d_pool
 
     def _observe_slo_occupancy(self, live) -> None:
         """Per-class pool occupancy at each decode dispatch."""
@@ -1200,15 +1315,56 @@ class _PagedEngine:
 
     def decode_segment_step(self, key) -> None:
         """One fixed-length paged decode segment over the live rows."""
+        self._segment_step(key, spec=False)
+
+    def spec_ready(self) -> bool:
+        """Whether this iteration's decode can ride the paged spec loop:
+        a draft is enabled, every live row is greedy and wants no
+        logprobs, and no row's verify block could clamp-write past its
+        capacity — rows nearing max_seq_len take plain segments for the
+        final stretch (the rows engine's capacity-edge rule)."""
+        srv = self.srv
+        if srv.spec_k is None or not self.live:
+            return False
+        seq, seg = srv.config.max_seq_len, self.b.segment
+        for r, req in self.live.items():
+            if req.temp > 0 or req.topk > 0 or req.want_lp:
+                return False
+            if self.cfg.verify_span(
+                int(self.row_len[r]) + min(req.budget, seg), srv.spec_k
+            ) > seq:
+                return False
+        return True
+
+    def spec_segment_step(self) -> None:
+        """One speculative segment over the live rows (all greedy;
+        :meth:`spec_ready` holds).
+
+        Pages are provisioned through ``KVPageConfig.verify_span``: the
+        k-wide verify block is written before acceptance is known, so a
+        row needs pages through ``row_len + budget + k`` — the overshoot
+        may straddle a page boundary the accepted tokens never reach.
+        Row lengths then advance by each row's emitted count only (the
+        loop's exit lengths match by contract), which IS the speculative
+        rewind in this layout."""
+        self._segment_step(None, spec=True)
+
+    def _segment_step(self, key, spec: bool) -> None:
+        """The plain or speculative segment step: provision each live
+        row's pages, run the segment, advance the row lengths, consume
+        the tokens."""
         b, srv = self.b, self.srv
         seg = b.segment
         for r in sorted(self.live):
             req = self.live.get(r)
             if req is None:  # preempted by an earlier row's allocation
                 continue
+            upto = int(self.row_len[r]) + seg
+            if spec:
+                upto = self.cfg.verify_span(
+                    int(self.row_len[r]) + min(req.budget, seg), srv.spec_k)
             try:
-                self._ensure(r, int(self.row_len[r]) + seg, req.slo_rank,
-                             led=req.ledger)
+                self._ensure(r, upto, req.slo_rank, led=req.ledger)
             except _PoolExhausted:
                 self._shed_row(r, req,
                                "KV page pool exhausted mid-decode")
@@ -1228,38 +1384,55 @@ class _PagedEngine:
         temp = np.zeros((rows,), np.float32)
         topk = np.zeros((rows,), np.int64)
         lens = np.zeros((rows,), np.int64)
+        budgets = np.zeros((rows,), np.int64)
         bt = np.zeros((rows, W), np.int64)  # non-live rows: all scratch
         for r, req in self.live.items():
             tok[r, 0] = req.last
             temp[r] = req.temp
             topk[r] = req.topk
             lens[r] = self.row_len[r]
+            budgets[r] = min(req.budget, seg) if spec else seg
             tbl = self.tables[r]
             bt[r, :len(tbl)] = tbl
-        self.pool, toks, lps = srv.paged_decode_segment(
-            self.pool, bt, tok, lens, key, temp, topk, seg
-        )
-        toks_host = toks.cpu().numpy()  # [segment, rows]
-        lps_host = (
-            lps.cpu().numpy()
-            if any(rq.want_lp for rq in self.live.values()) else None
-        )
+        if spec:
+            self.pool, out = srv.paged_spec_segment(
+                self.pool, bt, tok, lens, budgets, seg
+            )
+            # [rows, segment] -> [segment, rows]: rows with shorter
+            # budgets leave zeros beyond them, never read by the
+            # budget-bounded consumption below.
+            toks_host, lps_host = out.cpu().numpy().T, None
+        else:
+            self.pool, toks, lps = srv.paged_decode_segment(
+                self.pool, bt, tok, lens, key, temp, topk, seg
+            )
+            toks_host = toks.cpu().numpy()  # [segment, rows]
+            lps_host = (
+                lps.cpu().numpy()
+                if any(rq.want_lp for rq in self.live.values()) else None
+            )
         _h_decode_step().observe(
             (time.perf_counter() - seg_start) / seg, path="continuous"
         )
         lt1 = b.ledgers.now()
+        # the plain segment advances every row by `segment`, the spec
+        # loop by each row's budget
         for r in self.live:
             self.row_len[r] = min(
-                int(self.row_len[r]) + seg, srv.config.max_seq_len
+                int(self.row_len[r]) + int(budgets[r]),
+                srv.config.max_seq_len,
             )
-        self._consume_segment(toks_host, lps_host, lt0, lt1)
+        self._consume_segment(toks_host, lps_host, lt0, lt1,
+                              "spec" if spec else "plain")
 
     def _consume_segment(self, toks_host, lps_host,
-                         lt0: float = 0.0, lt1: float = 0.0) -> None:
-        """Host-side per-row consumption of one segment's tokens: EOS
-        stop, budget countdown, stop-sequence assembly, finish / expire /
-        emit. ``lt0``/``lt1`` bound the segment's service interval on the
-        ledger clock; each row's ledger is stamped once per segment."""
+                         lt0: float = 0.0, lt1: float = 0.0,
+                         kind: str = "plain") -> None:
+        """Host-side per-row consumption of one segment's tokens, shared
+        by the plain and speculative steps: EOS stop, budget countdown,
+        stop-sequence assembly, finish / expire / emit. ``lt0``/``lt1``
+        bound the segment's service interval on the ledger clock; each
+        row's ledger is stamped once per segment."""
         b, srv = self.b, self.srv
         for r in list(self.live):
             req = self.live[r]
@@ -1277,7 +1450,7 @@ class _PagedEngine:
                 if req.budget <= 0:
                     break
             req.ledger.decode_segment(lt0, lt1, tokens=len(seg_toks),
-                                      kind="plain")
+                                      kind=kind)
             if seg_toks:
                 accepted = req.asm.push(seg_toks)
                 req.lps.extend(seg_lp[:accepted])
@@ -1314,6 +1487,7 @@ class _PagedEngine:
             c = srv._bucket(c + 1, 8, cap=b.chunk)
         rows = b.rows
         zeros_i = np.zeros((rows,), np.int64)
+        ones_i = np.ones((rows,), np.int64)
         zeros_f = np.zeros((rows,), np.float32)
         for w in ws:
             bt = np.zeros((rows, w), np.int64)
@@ -1326,8 +1500,19 @@ class _PagedEngine:
                 self.pool, bt, np.zeros((rows, 1), np.int64), zeros_i,
                 b._next_key(), zeros_f, zeros_i, b.segment,
             )
+            if srv.spec_k is not None:
+                # the paged spec loop runs per page bucket too; a 1-token
+                # budget runs exactly one draft/verify round through the
+                # real program (writes land on scratch)
+                self.pool, _ = srv.paged_spec_segment(
+                    self.pool, bt, np.zeros((rows, 1), np.int64),
+                    ones_i, ones_i, b.segment,
+                )
         n = 1
         while n <= rows:
             self.pool = srv.copy_pages(self.pool, [0] * n, [0] * n)
             n *= 2
         srv.max_rows = rows
+        if srv.spec_k is not None:
+            # warmup decodes must not pollute acceptance telemetry
+            srv.reset_spec_stats()

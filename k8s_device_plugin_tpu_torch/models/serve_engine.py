@@ -5,8 +5,10 @@ the model on one card (no mesh, no tensor-parallel sharding), prefill
 through the flash kernel, decode loops, sampling, the batch entry
 points the rows-mode continuous batcher (serve_batch.py) drives, and
 the paged programs its paged engine drives (chunked prefill and decode
-segments over a page pool, read through kernel B2; page copies). No
-HTTP here — the protocol surface lives in serve_http.py.
+segments over a page pool, read through kernel B2; page copies), and
+self-draft speculative decoding over either KV layout
+(models/speculative.py). No HTTP here — the protocol surface lives in
+serve_http.py.
 
 PyTorch runs eagerly, so the reference's jitted programs become plain
 methods. The ``_dispatch`` seam stays: every shape-keyed serving
@@ -18,6 +20,7 @@ names, so dashboards read the same families).
 from __future__ import annotations
 
 import logging
+import threading
 import time
 
 import torch
@@ -194,6 +197,19 @@ class LMServer:
         self._scan_cache: dict[tuple, object] = {}
         self._segment_cache: dict[tuple, object] = {}
         self._paged_cache: dict[tuple, object] = {}
+        # Speculative decoding (enable_draft): the self-draft model and
+        # the spec loops, keyed by budget bucket / segment shape.
+        self.spec_k: int | None = None
+        self.draft_config = None
+        self.draft_model = None
+        self._spec_cache: dict = {}
+        # Live acceptance telemetry: emitted tokens / verify rounds is
+        # the number operators tune --speculative-k and --draft-layers
+        # by. Written by the engine thread, read by the /healthz handler
+        # thread — every touch holds _spec_mu (spec_stats_snapshot is
+        # the cross-thread read surface).
+        self._spec_mu = threading.Lock()
+        self.reset_spec_stats()
 
     def generator(self, seed: int = 0) -> torch.Generator:
         """A sampling generator on the serving device."""
@@ -234,6 +250,154 @@ class LMServer:
                 toks = toks[1:]
             return [bos] + toks[-4095:]
         return toks[-4096:] or [0]
+
+    # ------------------------------------------------------------------
+    # speculative decoding (greedy batches)
+    # ------------------------------------------------------------------
+
+    def enable_draft(self, draft_layers: int, k: int = 4):
+        """Turn on self-draft speculative decoding: the first
+        ``draft_layers`` of the target (sharing its parameter tensors)
+        propose ``k`` tokens per target verify forward. Greedy-exact;
+        sampled or logprob-requesting batches keep the plain loops.
+        Applies to static batches (:meth:`complete_batch_spec`) and to
+        all-greedy continuous pools (the engine switches per
+        iteration)."""
+        from k8s_device_plugin_tpu_torch.models.speculative import (
+            draft_params_from_target,
+        )
+
+        if not 0 < draft_layers < self.config.num_layers:
+            raise ValueError(
+                f"draft layers must be in (0, {self.config.num_layers})"
+            )
+        if k < 2:
+            raise ValueError("speculative k must be >= 2")
+        # Startup-time binds: main() calls enable_draft() before the
+        # batcher thread exists; after that these are read-only.
+        self.draft_model = draft_params_from_target(self.model, draft_layers)
+        self.draft_config = self.draft_model.cfg
+        self.spec_k = k
+        with self._spec_mu:
+            self._spec_cache.clear()
+        log.info("speculative decoding: %d-layer self-draft, k=%d",
+                 draft_layers, k)
+
+    def reset_spec_stats(self):
+        """One definition of the telemetry shape (init and both warmups
+        reset through here)."""
+        with self._spec_mu:
+            self.spec_stats = {"tokens": 0, "verify_rounds": 0}
+
+    def spec_stats_snapshot(self) -> dict:
+        """Point-in-time copy of the acceptance telemetry — the only
+        read surface other threads (the /healthz handler) may use."""
+        with self._spec_mu:
+            return dict(self.spec_stats)
+
+    def _record_spec(self, tokens: int, rounds: int) -> None:
+        """Accumulate acceptance telemetry (host counters + registry).
+
+        The accept ratio is emitted tokens per verify round over the
+        round's maximum (k draft tokens + 1 target token): 1.0 means
+        every draft token was accepted every round."""
+        with self._spec_mu:
+            self.spec_stats["tokens"] += tokens
+            self.spec_stats["verify_rounds"] += rounds
+            total_t = self.spec_stats["tokens"]
+            total_r = self.spec_stats["verify_rounds"]
+        obs_metrics.counter(
+            "tpu_serve_speculative_tokens_total",
+            "tokens emitted through the speculative verify loop",
+        ).inc(tokens)
+        obs_metrics.counter(
+            "tpu_serve_speculative_verify_rounds_total",
+            "target verify forwards run by the speculative loop",
+        ).inc(rounds)
+        if total_r and self.spec_k:
+            obs_metrics.gauge(
+                "tpu_serve_speculative_accept_ratio",
+                "tokens per verify round / (k+1): 1.0 = every draft "
+                "token accepted",
+            ).set(total_t / (total_r * (self.spec_k + 1)))
+
+    @torch.inference_mode()
+    def complete_batch_spec(self, prompts, max_new_tokens):
+        """Greedy batch decode through the speculative verify loop.
+
+        Same contract as greedy ``complete_batch`` (token lists, shared
+        TTFT) and token-identical with it — the loop only accepts the
+        target's own argmax choices."""
+        from k8s_device_plugin_tpu_torch.models.speculative import (
+            draft_cache_from_target,
+            make_spec_loop,
+        )
+        from k8s_device_plugin_tpu_torch.models.transformer import (
+            set_cache_index,
+        )
+
+        if self.spec_k is None:
+            raise RuntimeError("complete_batch_spec needs enable_draft()")
+        dev = self.device
+        B = len(prompts)
+        if B < 1:
+            return [], 0.0
+        seq = self.config.max_seq_len
+        budgets, p_lens, rows, padded = self._batch_setup(
+            prompts, max_new_tokens
+        )
+        # Capacity edge: the k-wide verify block must never write past
+        # the cache — clamped overflow writes land on slot seq-1 BEFORE
+        # the logits read it, corrupting the K/V the final in-budget
+        # token attends to (the plain loop only overshoots AFTER its
+        # in-budget tokens are sampled). Rows that could touch the edge
+        # take the plain loop; exactness beats speed here.
+        if any(p + n > seq - self.spec_k
+               for p, n in zip(p_lens[:B], budgets)):
+            return self.complete_batch(prompts, max_new_tokens)
+        zeros_f = torch.zeros((rows,), dtype=torch.float32, device=dev)
+        zeros_i = torch.zeros((rows,), dtype=torch.long, device=dev)
+
+        start = time.perf_counter()
+        logits, cache = self._prefill(_long(padded, dev))
+        lens = _long(p_lens, dev)
+        t_cache = set_cache_index(cache, lens)
+        # The self-draft shares the target's first layers, so its
+        # prefill cache IS the target cache's first layers — no second
+        # prefill forward in the TTFT.
+        d_cache = set_cache_index(
+            draft_cache_from_target(cache, self.draft_config.num_layers),
+            lens,
+        )
+        first, _ = self._first_fn(logits, lens, self.generator(0), zeros_f,
+                                  zeros_i)
+        first_host = first.cpu()
+        ttft = time.perf_counter() - start
+        _h_ttft().observe(ttft, path="spec")
+        _h_occupancy().observe(B / rows, mode="static")
+
+        budgets = [min(n, seq - p) for n, p in zip(budgets, p_lens[:B])]
+        conts = [[int(first_host[b])] for b in range(B)]
+        maxrem = max(budgets) - 1
+        if maxrem > 0:
+            cap = self._scan_bucket(maxrem)
+            rem = [max(0, budgets[b] - 1) for b in range(B)]
+            rem += [0] * (rows - B)
+            out, _, _, rounds = self._dispatch(
+                "spec_loop", self._spec_cache, cap,
+                lambda: make_spec_loop(
+                    self.model, self.draft_model, self.spec_k, cap
+                ),
+                t_cache, d_cache, first[:, None], lens, _long(rem, dev),
+            )
+            self._record_spec(sum(rem), rounds)
+            out_host = out.cpu()
+            for b in range(B):
+                conts[b].extend(int(t) for t in out_host[b, : rem[b]])
+        outs, _ = self._finish_outs(
+            prompts, conts, [[] for _ in range(B)]
+        )
+        return outs, ttft
 
     # ------------------------------------------------------------------
     # sampling
@@ -532,6 +696,34 @@ class LMServer:
         )
 
     @torch.inference_mode()
+    def spec_segment(self, pool, d_pool, tok, rowlen, budgets,
+                     segment: int):
+        """One speculative segment over the whole (all-greedy) row pool.
+
+        The verify loop of the static path (make_spec_loop) with
+        cap=segment and per-row budgets min(remaining, segment): the
+        loop runs until every row emitted its budget, so the engine
+        knows the counts without reading them back. Returns (pool,
+        d_pool, tokens [rows, segment]); both caches' buffers are
+        written in place, their indices rewound to ``rowlen +
+        budgets``."""
+        from k8s_device_plugin_tpu_torch.models.speculative import (
+            make_spec_loop,
+        )
+
+        dev = self.device
+        out, pool, d_pool, rounds = self._dispatch(
+            "spec_loop", self._spec_cache, ("spec_segment", segment),
+            lambda: make_spec_loop(
+                self.model, self.draft_model, self.spec_k, segment
+            ),
+            pool, d_pool, _long(tok, dev), _long(rowlen, dev),
+            _long(budgets, dev),
+        )
+        self._record_spec(int(budgets.sum()), rounds)
+        return pool, d_pool, out
+
+    @torch.inference_mode()
     def prefill_rows(self, windows, p_lens, temps, topks, key):
         """Prefill padded prompt rows and sample each row's first token.
 
@@ -649,6 +841,44 @@ class LMServer:
             pool, _long(bt, dev), _long(tok, dev), _long(lens, dev), key,
             _f32(temp, dev), _long(topk, dev),
         )
+
+    @torch.inference_mode()
+    def paged_spec_segment(self, pool, bt, tok, lens, budgets,
+                           segment: int):
+        """One speculative segment over the paged row pool.
+
+        The paged counterpart of :meth:`spec_segment`: the
+        ``make_paged_spec_loop`` program drafts through an alias of
+        ``pool``'s first layers, runs the k-wide verify block through
+        B2, and rewinds by not advancing the row lengths — so one pool
+        is written, in place. Returns (pool, tokens [rows, segment]);
+        each row's first budgets[r] entries are valid. One program per
+        (rows, W, segment) bucket, dispatched as the ``paged_spec_loop``
+        family.
+
+        The caller must have provisioned every row's block table
+        through ``lens + budgets + k`` tokens
+        (``KVPageConfig.verify_span``) — the verify block may write up
+        to k positions past the final accepted token."""
+        from k8s_device_plugin_tpu_torch.models.speculative import (
+            make_paged_spec_loop,
+        )
+
+        if self.spec_k is None:
+            raise RuntimeError("paged_spec_segment needs enable_draft()")
+        dev = self.device
+        out, pool, rounds = self._dispatch(
+            "paged_spec_loop", self._spec_cache,
+            ("paged", tok.shape[0], bt.shape[1], segment),
+            lambda: make_paged_spec_loop(
+                self.model, self.draft_model, self.spec_k, segment,
+                self.draft_config.num_layers,
+            ),
+            pool, _long(bt, dev), _long(tok, dev), _long(lens, dev),
+            _long(budgets, dev),
+        )
+        self._record_spec(int(budgets.sum()), rounds)
+        return pool, out
 
     @torch.inference_mode()
     def copy_pages(self, pool, src_ids, dst_ids):

@@ -11,8 +11,7 @@ KV layout: ``--kv-cache paged`` (the default, as in the reference) or
 The flag surface is the reference's, narrowed where the port still
 lacks a module (each narrowing is a gap in ROADMAP.md section C):
 ``--batching continuous`` (the static batcher is A5), ``--role both``
-(the handoff roles are A3), no speculative flags (A2);
-``--checkpoint`` raises. ``--device`` is new: the card by default,
+(the handoff roles are A3); ``--checkpoint`` raises. ``--device`` is new: the card by default,
 ``cpu`` on request (the counterpart of the reference's
 ``JAX_PLATFORMS``).
 """
@@ -114,6 +113,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "dispatch overhead")
     p.add_argument("--seed", type=int, default=0,
                    help="server-level sampling generator seed")
+    p.add_argument("--draft-layers", type=int, default=0,
+                   help="enable self-draft speculative decoding with "
+                        "this many target layers as the draft (0 = "
+                        "off; both batching modes); greedy-exact, "
+                        "sampled/logprob requests keep the plain scan")
+    p.add_argument("--speculative-k", type=int, default=4,
+                   help="draft tokens proposed per target verify "
+                        "forward (with --draft-layers)")
     p.add_argument("--kv-cache", choices=("paged", "rows"),
                    default="paged",
                    help="continuous-mode KV layout: paged = block-table "
@@ -216,6 +223,12 @@ def make_handler(server, batcher, default_timeout_s: float = 0.0,
                 body = {"status": "ok"}
                 if batcher.allocation_id:
                     body["allocation_id"] = batcher.allocation_id
+                if server.spec_k is not None:
+                    s = server.spec_stats_snapshot()
+                    s["tokens_per_verify_round"] = round(
+                        s["tokens"] / s["verify_rounds"], 2
+                    ) if s["verify_rounds"] else None
+                    body["speculative"] = s
                 self._send(200, body)
             else:
                 self._send(404, {"error": "not found"})
@@ -485,6 +498,8 @@ def main(argv=None, on_ready=None) -> int:
                         batching=args.batching):
         server = LMServer(config=config, checkpoint=args.checkpoint,
                           device=args.device)
+        if args.draft_layers:
+            server.enable_draft(args.draft_layers, k=args.speculative_k)
         batcher = ContinuousBatcher(
             server, max_batch=args.max_batch,
             segment_tokens=args.segment_tokens, seed=args.seed,

@@ -449,6 +449,54 @@ def test_paged_attention_kernel_split_edges(cuda, L, dtype, tol):
             paged_attention.PAGED_BF16_ROW_TOL
 
 
+@pytest.mark.parametrize("kv_heads", [16, 4])
+@pytest.mark.parametrize("L", [2, 4, 5])
+def test_paged_attention_kernel_at_the_verify_width(cuda, L, kv_heads):
+    """The speculative verify block: L = k query rows a sequence at
+    positions lens .. lens + L - 1 (rows at 1019/700/301/37, bf16, the
+    serving default's 16 heads, d = 64). MHA gives n_rep·L < 16 rows, so
+    the decode route in bf16 with a causal mask per query row inside a
+    tile; GQA with 4 q heads a kv head reaches 16 rows at L = 4, the
+    chunk route. Against the plain read, row by row against the float32
+    read, and two launches bit-equal."""
+    args = paged_inputs(4, L, 16, kv_heads, 64, 16, [1019, 700, 301, 37],
+                        torch.bfloat16, seed=L * kv_heads)
+    plan = paged_attention.paged_attn_plan(4, L, 16, kv_heads, 64, 16,
+                                           args[3].shape[1], torch.bfloat16)
+    assert plan.route == ("chunk" if 16 // kv_heads * L >= 16
+                          else "decode")
+    got = paged_attention.paged_attention(*args)
+    again = paged_attention.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = paged_attention.paged_attention_reference(*args)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    close = paged_attention.paged_attention_fp32(
+        *args, round_p=plan.route == "chunk")
+    assert paged_attention.row_rel_err(got, close) <= \
+        paged_attention.PAGED_BF16_ROW_TOL
+
+
+def test_paged_spec_engine_on_card_matches_plain(cuda):
+    """The paged engine with a self-draft on the card (B2 at L = 1 for
+    the draft steps, L = k for the verify block) decodes the plain
+    path's tokens in float32."""
+    srv = LMServer(config=SMALL, device=cuda)
+    srv.enable_draft(1, k=3)
+    jobs = [([5, 17, 99], 7), ([7, 3, 42, 11], 23), ([1], 4), ([88, 2], 12)]
+    want = [srv.complete(p, n)[0] for p, n in jobs]
+    eng = ContinuousBatcher(srv, max_batch=4, segment_tokens=4,
+                            kv_mode="paged", page_tokens=16)
+    before = paged_attention.PAGED_ATTN.launches
+    reqs = [eng.submit_async(p, n) for p, n in jobs]
+    got = [eng.wait(r, timeout=120)[0] for r in reqs]
+    assert got == want
+    assert srv.spec_stats_snapshot()["verify_rounds"] > 0
+    assert paged_attention.PAGED_ATTN.launches > before
+    assert eng.drain(timeout=30)
+
+
 @pytest.mark.parametrize("L", [1, 64])
 def test_paged_attention_kernel_replays_in_a_cuda_graph(cuda, L):
     """B2's grid and workspace depend on shapes only: a launch captured

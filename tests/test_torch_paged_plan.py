@@ -126,6 +126,29 @@ def test_grid_and_workspace_depend_on_shapes_only():
     assert short.n_splits == 1 and short.workspace_floats == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("heads,kv_heads", [(16, 16), (16, 4)],
+                         ids=["mha", "gqa4"])
+@pytest.mark.parametrize("L", [1, 2, 4, 5])
+def test_route_at_the_speculative_verify_width(L, heads, kv_heads, dtype):
+    """The verify block of speculative decoding runs B2 at L = k over
+    the serving default's 16 heads. The route follows n_rep·L: bf16 MHA
+    at k = 4 has 4 query rows a kv head (the decode route, a causal mask
+    per row inside one 16-row tile); GQA with 4 q heads a kv head
+    reaches PAGED_CHUNK_MIN_ROWS = 16 at k = 4 (the chunk route); float32
+    always decodes. The grid follows the plan's query tiles."""
+    plan = pa.paged_attn_plan(4, L, heads, kv_heads, 64, 16, 65, dtype)
+    rows = heads // kv_heads * L
+    chunk = dtype == torch.bfloat16 and rows >= pa.PAGED_CHUNK_MIN_ROWS
+    assert plan.route == ("chunk" if chunk else "decode")
+    assert plan.rows == rows
+    assert plan.q_tiles == -(-rows // plan.tile_rows)
+    assert plan.blocks == 4 * kv_heads * plan.q_tiles * plan.n_splits
+    if L == 4 and dtype == torch.bfloat16:   # k = 4, the serving default
+        assert plan.route == ("chunk" if kv_heads == 4 else "decode")
+
+
 def test_wrapper_reads_int64_indices_without_a_cast():
     """The engine's int64 tables and positions reach the kernel as they
     are: the same storage, no cast launched per layer. The kernel reads
@@ -241,6 +264,11 @@ MODEL_CASES = [
     ("gqa_chunk_2splits", 8, 8, 2, 16, 8, [48, 0, -1], "chunk", 2),
     ("mqa_chunk_many", 2, 8, 1, 8, 64, [126, 400, -1], "chunk", 8),
     ("gqa_chunk_2tiles", 20, 8, 2, 16, 24, [300, 0, 255], "chunk", 6),
+    # the speculative verify block (L = k = 4): MHA on the decode route,
+    # row 0's keys ending on the split boundary; GQA with 16 query rows a
+    # kv head on the chunk route
+    ("mha_verify_L4_2splits", 4, 4, 4, 8, 16, [60, 0, -1], "decode", 2),
+    ("gqa_verify_L4_many", 4, 8, 2, 16, 24, [300, 37, 0], "chunk", 6),
 ]
 MODEL_D = 16
 
@@ -281,7 +309,8 @@ def test_tile_model_matches_reference(name, L, heads, kv, P, W, lens, route,
     plan = pa.paged_attn_plan(3, L, heads, kv, MODEL_D, P, W,
                               torch.bfloat16)
     assert (plan.route, plan.n_splits) == (route, splits)
-    if name == "mha_decode_2splits":  # row 0's keys end on the boundary
+    if name in ("mha_decode_2splits", "mha_verify_L4_2splits"):
+        # row 0's keys end on the boundary
         assert lens[0] + L == plan.keys_per_split
     tdt = torch.bfloat16 if bf16 else torch.float32
     jdt = jnp.bfloat16 if bf16 else jnp.float32
