@@ -56,6 +56,20 @@ exits non-zero without a result:
   exactly layers x (chunks + plain decode steps) + verify rounds x (k x
   draft layers + layers), aggregate tokens/s, and the share of its bf16
   tokens the plain paged path agrees with.
+- ``serve_handoff``: the disaggregated roles. float32 at the full-width
+  default config: a prefill/decode pair of paged ContinuousBatchers
+  over the in-process transport serves single requests one after
+  another (one a prefix hit) with tokens identical to the single paged
+  engine's and logprobs within 1e-4. Then two daemons at their default
+  (paged KV, bf16, --max-batch 4), ``--role prefill`` and ``--role
+  decode --handoff-peer`` it, with ``ml_dtypes`` unimportable: the
+  serve_paged traffic through the decode daemon over HTTP, every
+  request exported and imported once (no fallback, no orphan, no lease
+  left), B2 launched exactly layers x prefill chunks inside the prefill
+  replica's dispatches and layers x decode steps inside the decode
+  replica's, B1 never; aggregate tokens/s, the share of its bf16 tokens
+  serve_paged's agree with, the hop's latency and bundle size; one bf16
+  page block through export, bundle bytes and import, bit-equal.
 - ``kernel_bwd``: the backward kernels B3 (dQ) and B4 (dK/dV) through
   ``FlashAttention.backward`` against the plain backward on the same
   inputs, random output and lse cotangents, at the training shapes and
@@ -82,6 +96,7 @@ before any phase.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import json
@@ -92,6 +107,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1212,6 +1228,8 @@ def phase_serve_paged(counters) -> dict:
             raise AssertionError(f"serve_paged: combine launches "
                                  f"{launches['paged_attn_combine']}, want "
                                  f"1 .. {want}")
+        # the yardstick of serve_handoff's bf16 agreement
+        tokens = _inproc_tokens(batcher, logprobs=True)
     return {
         "phase": "serve_paged", "ok": True, "startup_s": startup_s,
         "prompt_lens": [len(p) for p in PAGED_PROMPTS],
@@ -1223,8 +1241,26 @@ def phase_serve_paged(counters) -> dict:
         "decode_segments": segments, "segment_tokens": batcher.segment,
         "page_tokens": batcher.kv_config.page_tokens,
         "pool_pages": batcher.kv_config.pool_pages,
-        "launches": launches, "drained": True,
+        "launches": launches, "drained": True, "tokens": tokens,
     }
+
+
+def _inproc_tokens(batcher, **kw):
+    """The continuation token ids of PAGED_PROMPTS submitted at once to
+    ``batcher`` in-process, SERVE_MAX_TOKENS each."""
+    ids = [batcher.server.encode_prompt(p) for p in PAGED_PROMPTS]
+    reqs = [batcher.submit_async(t, SERVE_MAX_TOKENS, **kw) for t in ids]
+    return [batcher.wait(r, timeout=600)[0][len(t):]
+            for r, t in zip(reqs, ids)]
+
+
+def _agreement(got, want) -> dict:
+    """The share of ``want``'s tokens that ``got`` has at the same
+    position, and where each job first differs."""
+    same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+    total = sum(len(w) for w in want)
+    return {"share": same / total, "tokens": total,
+            "first_divergence": _first_diff(got, want)}
 
 
 # Speculative decoding: a 2-layer self-draft proposing 4 tokens a verify
@@ -1395,16 +1431,8 @@ def phase_serve_spec(counters) -> dict:
                 f"flash_fwd = 0")
         # bf16 agreement: the same prompts again, all at once, greedy
         # (speculative) and then with logprobs (the plain segment).
-        ids = [srv.encode_prompt(p) for p in PAGED_PROMPTS]
-        got = {}
-        for kind, kw in (("spec", {}), ("plain", {"logprobs": True})):
-            reqs = [batcher.submit_async(t, SERVE_MAX_TOKENS, **kw)
-                    for t in ids]
-            got[kind] = [batcher.wait(r, timeout=600)[0][len(t):]
-                         for r, t in zip(reqs, ids)]
-        same = sum(a == b for s, p in zip(got["spec"], got["plain"])
-                   for a, b in zip(s, p))
-        total = sum(len(p) for p in got["plain"])
+        agreement = _agreement(_inproc_tokens(batcher),
+                               _inproc_tokens(batcher, logprobs=True))
     return {
         "phase": "serve_spec", "ok": True, "fp32": fp32,
         "startup_s": startup_s, "draft_layers": SPEC_DRAFT_LAYERS,
@@ -1417,9 +1445,293 @@ def phase_serve_spec(counters) -> dict:
         spec_tokens / rounds, "spec_segments": spec_segments,
         "plain_segments": plain_segments, "prefill_chunks": chunks,
         "segment_tokens": batcher.segment, "launches": launches,
-        "bf16_agreement": {
-            "share": same / total, "tokens": total,
-            "first_divergence": _first_diff(got["spec"], got["plain"])},
+        "bf16_agreement": agreement, "drained": True,
+    }
+
+
+# The handoff phase's fp32 exactness: single requests one after another,
+# the last sharing the first's first 256 tokens (16 pages of 16).
+HANDOFF_PROMPT_LENS = (700, 100, 300)
+HANDOFF_BUDGET = 24
+HANDOFF_LP_TOL = 1e-4
+
+
+def _handoff_exactness() -> dict:
+    """float32 at full width (default_config, seed-0 weights): a
+    prefill/decode pair of paged ContinuousBatchers over the in-process
+    transport against the single paged engine, requests one at a time,
+    greedy with logprobs: tokens identical, logprobs within
+    HANDOFF_LP_TOL, every request handed off."""
+    import dataclasses
+
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models import handoff as kv_handoff
+    from k8s_device_plugin_tpu_torch.models.serve_batch import (
+        ContinuousBatcher,
+    )
+    from k8s_device_plugin_tpu_torch.models.serve_engine import (
+        LMServer,
+        default_config,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    srv = LMServer(config=dataclasses.replace(default_config(),
+                                              dtype=torch.float32),
+                   device="cuda")
+    rng = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, 32000, (n,), generator=rng).tolist()
+               for n in HANDOFF_PROMPT_LENS]
+    prompts.append(prompts[0][:256] + prompts[1])
+
+    def engine(**kw):
+        return ContinuousBatcher(srv, max_batch=4, segment_tokens=16,
+                                 kv_mode="paged", **kw)
+
+    def serve(eng):
+        out = []
+        for p in prompts:
+            req = eng.submit_async(p, HANDOFF_BUDGET, logprobs=True)
+            eng.wait(req, timeout=600)
+            out.append((req.slot["tokens"], req.slot["logprobs"]))
+        return out
+
+    single = engine()
+    try:
+        want = serve(single)
+    finally:
+        single.close()
+    prefill = engine(role="prefill")
+    client = kv_handoff.HandoffClient(kv_handoff.InProcTransport(prefill),
+                                      peer="inproc")
+    decode = engine(role="decode", handoff_client=client)
+    try:
+        got = serve(decode)
+        hops = len(client.latencies_s)
+        leased = _leases_left(prefill)
+    finally:
+        decode.close()
+        prefill.close()
+    toks = [t for t, _ in got]
+    if toks != [t for t, _ in want]:
+        raise AssertionError(
+            f"serve_handoff fp32: pair tokens differ from the single "
+            f"engine's at {_first_diff(toks, [t for t, _ in want])}")
+    lp_err = max(abs(a - b) for (_, g), (_, w) in zip(got, want)
+                 for a, b in zip(g, w))
+    if lp_err > HANDOFF_LP_TOL or hops != len(prompts) or leased:
+        raise AssertionError(f"serve_handoff fp32: logprob error {lp_err} "
+                             f"(tolerance {HANDOFF_LP_TOL}), {hops} hops "
+                             f"for {len(prompts)} requests, {leased} "
+                             f"leases left")
+    del srv
+    torch.cuda.empty_cache()
+    return {"prompt_lens": [len(p) for p in prompts],
+            "budget": HANDOFF_BUDGET, "identical_tokens": True,
+            "max_logprob_err": lp_err, "lp_tol": HANDOFF_LP_TOL,
+            "hops": hops}
+
+
+def _leases_left(prefill, timeout: float = 10.0) -> int:
+    """The prefill replica's pending leases once its engine has reaped
+    the acked ones (it does so on its next tick)."""
+    deadline = time.monotonic() + timeout
+    while prefill.leases.pending() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    return prefill.leases.pending()
+
+
+def _charge_by_replica(servers: dict, counter):
+    """Wrap each replica's ``_dispatch``: the ``counter`` launches made
+    inside a replica's dispatches are charged to it, and its dispatches
+    are counted by program family. The two replicas share one process
+    and one card, so their dispatches take turns under one lock."""
+    lock = threading.Lock()
+    counts = {name: collections.Counter() for name in servers}
+    for name, srv in servers.items():
+        def dispatch(fn, cache, key, build, *args, _inner=srv._dispatch,
+                     _count=counts[name]):
+            with lock:
+                before = counter.launches
+                out = _inner(fn, cache, key, build, *args)
+                _count["launches"] += counter.launches - before
+                _count[fn] += 1
+            return out
+
+        srv._dispatch = dispatch
+    return counts
+
+
+def _bf16_round_trip(srv) -> dict:
+    """One bf16 page block on the card through ``export_pages``, bundle
+    bytes and ``import_pages`` into another pool at other page ids:
+    every layer's K and V pages bit-equal."""
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models import handoff as kv_handoff
+
+    pages, page_tokens = 24, 16
+    src = srv.make_paged_pool(pages, page_tokens)
+    gen = torch.Generator(device=srv.device).manual_seed(4)
+    with torch.inference_mode():
+        for p in src.k_pages + src.v_pages:
+            p.copy_(torch.randn(p.shape, generator=gen, device=srv.device))
+    ids, dst_ids = list(range(3, 14)), list(range(23, 12, -1))
+    t0 = time.perf_counter()
+    wire = kv_handoff.PageBlockBundle.from_pool_payload(
+        srv.export_pages(src, ids), lease_id="round-trip", lease_s=30.0,
+        window=list(range(len(ids) * page_tokens)), first_token=0,
+        first_lp=0.0, budget=1, temp=0.0, topk=0, want_lp=False,
+        slo="standard", page_tokens=page_tokens).to_bytes()
+    dst = srv.import_pages(
+        srv.make_paged_pool(pages, page_tokens), dst_ids,
+        kv_handoff.PageBlockBundle.from_bytes(wire).to_pool_payload())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    for a, b in zip(src.k_pages + src.v_pages, dst.k_pages + dst.v_pages):
+        if b.dtype != torch.bfloat16 or not torch.equal(
+                a[ids].view(torch.int16), b[dst_ids].view(torch.int16)):
+            raise AssertionError("serve_handoff: the bf16 page block "
+                                 "changed across export/bytes/import")
+    return {"pages": len(ids), "bundle_bytes": len(wire),
+            "export_bytes_import_ms": ms, "bit_equal": True}
+
+
+@contextlib.contextmanager
+def _without_ml_dtypes():
+    """``import ml_dtypes`` fails inside: the bundle wire must not need
+    it (the port's stated packages do not include it)."""
+    saved = sys.modules.pop("ml_dtypes", None)
+    sys.modules["ml_dtypes"] = None
+    try:
+        yield
+    finally:
+        del sys.modules["ml_dtypes"]
+        if saved is not None:
+            sys.modules["ml_dtypes"] = saved
+
+
+def phase_serve_handoff(counters, paged_tokens) -> dict:
+    """The disaggregated roles on the card: fp32 exactness of a pair
+    against the single engine (_handoff_exactness), then a ``--role
+    prefill`` and a ``--role decode --handoff-peer`` daemon at their
+    default (paged KV, bf16, --max-batch 4) carrying the serve_paged
+    traffic over HTTP, all with ml_dtypes unimportable: every request
+    exported and imported once, no fallback, no orphan, no lease left;
+    B2 launched exactly layers x chunks in the prefill replica and layers
+    x decode steps in the decode replica, B1 never; tokens/s, the share
+    of its bf16 tokens that serve_paged's (``paged_tokens``) agree
+    with, the hop's latency and bundle size, and one bf16 page block
+    bit-equal through export, bytes and import."""
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models import handoff as kv_handoff
+
+    fp32 = _handoff_exactness()
+    argv = ["--max-batch", "4"]
+    with _without_ml_dtypes(), \
+            _daemon(argv + ["--role", "prefill"], "serve_handoff_prefill") \
+            as (pre_httpd, prefill, pre_startup_s):
+        pre_port = pre_httpd.server_address[1]
+        with _daemon(argv + ["--role", "decode", "--handoff-peer",
+                             f"http://127.0.0.1:{pre_port}"],
+                     "serve_handoff_decode") as (httpd, decode, startup_s):
+            port = httpd.server_address[1]
+            try:
+                code = _post(pre_port, {"prompt": "hi", "max_tokens": 2})[0]
+            except urllib.error.HTTPError as e:
+                code = e.code
+                e.close()
+            if code != 503:
+                raise AssertionError(f"serve_handoff: a completion on the "
+                                     f"prefill replica gave {code}")
+            client = decode.handoff_client
+            charged = _charge_by_replica(
+                {"prefill": prefill.server, "decode": decode.server},
+                next(c for c in counters if c.name == "paged_attn"))
+            _, before = _get(port, "/metrics")
+            for c in counters:
+                c.launches = 0
+            hops0 = len(client.latencies_s)
+            _, completions, ttfts, wall = _paged_traffic(
+                port, "serve_handoff", logprobs=True)
+            launches = {c.name: c.launches for c in counters}
+            by_replica = {k: dict(v) for k, v in charged.items()}
+            hop_s = list(client.latencies_s)[hops0:]
+            leased = _leases_left(prefill)
+            _, after = _get(port, "/metrics")
+            delta = _deltas(before, after)
+            outcomes = {
+                f"{role}_{outcome}": delta(
+                    "tpu_serve_handoff_total",
+                    f'role="{role}",outcome="{outcome}"')
+                for role, outcome in (
+                    ("prefill", "export"), ("decode", "ok"),
+                    ("decode", "imported"), ("decode", "fallback"),
+                    ("decode", "error"), ("decode", "import_error"))}
+            orphans = delta("tpu_serve_handoff_orphans_total")
+            n = len(PAGED_PROMPTS)
+            if (outcomes["prefill_export"] != n
+                    or outcomes["decode_imported"] != n
+                    or outcomes["decode_ok"] != n
+                    or outcomes["decode_fallback"] != 0
+                    or orphans != 0 or leased != 0 or len(hop_s) != n):
+                raise AssertionError(
+                    f"serve_handoff: outcomes {outcomes}, orphans "
+                    f"{orphans}, leases left {leased}, {len(hop_s)} hops "
+                    f"for {n} requests")
+            layers = decode.server.config.num_layers
+            pre, dec = by_replica["prefill"], by_replica["decode"]
+            chunks = pre.get("paged_prefill", 0)
+            segments = dec.get("paged_segment", 0)
+            want = {"prefill": layers * chunks,
+                    "decode": layers * segments * decode.segment}
+            if (pre.get("launches", 0) != want["prefill"]
+                    or dec.get("launches", 0) != want["decode"]
+                    or pre.get("paged_segment", 0)
+                    or dec.get("paged_prefill", 0)
+                    or launches["paged_attn"] != sum(want.values())
+                    or launches["flash_fwd"] != 0 or not chunks
+                    or not segments):
+                raise AssertionError(
+                    f"serve_handoff: launches {launches}, by replica "
+                    f"{by_replica}; want paged_attn = {layers} x {chunks} "
+                    f"chunks in the prefill replica + {layers} x "
+                    f"{segments} segments x {decode.segment} steps in the "
+                    f"decode replica, flash_fwd = 0")
+            # one more hop, alone: its latency and the bundle's size
+            ids = decode.server.encode_prompt(PAGED_PROMPTS[3])
+            t0 = time.perf_counter()
+            bundle = client.fetch({"tokens": ids,
+                                   "max_new_tokens": SERVE_MAX_TOKENS})
+            alone_ms = (time.perf_counter() - t0) * 1e3
+            client.ack(bundle.lease_id)
+            leaf = kv_handoff.to_tensor(bundle.arrays["layer0"]["k"])
+            if bundle.num_layers != layers or leaf.dtype != torch.bfloat16 \
+                    or not torch.isfinite(leaf).all():
+                raise AssertionError(f"serve_handoff: bundle of "
+                                     f"{bundle.num_layers} layers, "
+                                     f"{leaf.dtype}")
+            agreement = _agreement(_inproc_tokens(decode, logprobs=True),
+                                   paged_tokens)
+            round_trip = _bf16_round_trip(decode.server)
+    return {
+        "phase": "serve_handoff", "ok": True, "fp32": fp32,
+        "startup_s": {"prefill": pre_startup_s, "decode": startup_s},
+        "prompt_lens": [len(p) for p in PAGED_PROMPTS],
+        "max_tokens": SERVE_MAX_TOKENS, "completion_tokens": completions,
+        "wall_s": wall, "ttft_s": ttfts,
+        "aggregate_tokens_per_s": sum(completions) / wall,
+        "handoffs": outcomes, "orphans": orphans, "leases_left": leased,
+        "hop_s": hop_s, "hop_alone_ms": alone_ms,
+        "bundle": {"prompt_tokens": len(ids), "pages": bundle.num_pages,
+                   "bytes": len(bundle.to_bytes()),
+                   "dtype": "bfloat16"},
+        "prefill_chunks": chunks, "decode_segments": segments,
+        "segment_tokens": decode.segment, "launches": launches,
+        "launches_by_replica": by_replica,
+        "bf16_agreement_with_serve_paged": agreement,
+        "bf16_round_trip": round_trip, "ml_dtypes": "unimportable",
         "drained": True,
     }
 
@@ -1661,6 +1973,7 @@ def main() -> int:
     paged_counters = [attention.FLASH_FWD, paged_attention.PAGED_ATTN,
                       paged_attention.PAGED_ATTN_COMBINE]
     serve_paged = phase_serve_paged(paged_counters)
+    paged_tokens = serve_paged.pop("tokens")
     _jline(serve_paged)
     paged_summary["launches"] = serve_paged["launches"]["paged_attn"]
     paged_summary["combine_launches"] = \
@@ -1670,6 +1983,13 @@ def main() -> int:
     paged_summary["launches_spec"] = serve_spec["launches"]["paged_attn"]
     paged_summary["combine_launches_spec"] = \
         serve_spec["launches"]["paged_attn_combine"]
+    serve_handoff = phase_serve_handoff(paged_counters, paged_tokens)
+    _jline(serve_handoff)
+    paged_summary["launches_handoff"] = \
+        serve_handoff["launches"]["paged_attn"]
+    paged_summary["launches_handoff_by_replica"] = {
+        name: n["launches"]
+        for name, n in serve_handoff["launches_by_replica"].items()}
     train = phase_train()
     _jline(train)
     launches = train["benchmark"]["launches"]

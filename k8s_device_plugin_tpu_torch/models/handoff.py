@@ -46,6 +46,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from k8s_device_plugin_tpu_torch.obs import metrics as obs_metrics
 from k8s_device_plugin_tpu_torch.obs import trace as obs_trace
@@ -143,15 +144,42 @@ class HandoffRejected(HandoffError):
     wrong role) — retrying the same peer cannot help."""
 
 
-def _np_dtype(name: str) -> np.dtype:
-    """Resolve a serialized dtype name, including the ml_dtypes extras
-    (bfloat16) numpy itself cannot parse from a string."""
-    try:
-        return np.dtype(name)
-    except TypeError:
-        import ml_dtypes  # ships with jax
+# bfloat16 on the host: numpy has no bf16 type, so a bf16 leaf is held
+# as its raw 16-bit words in an array of this tagged uint16 dtype. The
+# wire carries the same bytes under ``"dtype": "bfloat16"``, so bundles
+# cross to and from the reference package unchanged.
+BF16_WORDS = np.dtype(np.uint16, metadata={"wire": "bfloat16"})
 
-        return np.dtype(getattr(ml_dtypes, name))
+
+def _np_dtype(name: str) -> np.dtype:
+    """Resolve a serialized dtype name; ``bfloat16`` is held as
+    :data:`BF16_WORDS`."""
+    if name == "bfloat16":
+        return BF16_WORDS
+    return np.dtype(name)
+
+
+def _dtype_name(dt: np.dtype) -> str:
+    """The wire name of a host leaf's dtype (the inverse of
+    :func:`_np_dtype`)."""
+    return (dt.metadata or {}).get("wire", str(dt))
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A page tensor on the host as a numpy array; bf16 as its words."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_WORDS)
+    return t.numpy()
+
+
+def to_tensor(a: np.ndarray) -> torch.Tensor:
+    """The inverse of :func:`host_array`: a host leaf as a CPU tensor (a
+    copy — wire arrays are read-only views of the bundle's bytes)."""
+    if _dtype_name(a.dtype) == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
 class PageBlockBundle:
@@ -237,7 +265,7 @@ class PageBlockBundle:
         for name in sorted(self.arrays, key=lambda n: int(n[5:])):
             kv = self.arrays[name]
             k, v = np.ascontiguousarray(kv["k"]), np.ascontiguousarray(kv["v"])
-            layers.append({"name": name, "dtype": str(k.dtype),
+            layers.append({"name": name, "dtype": _dtype_name(k.dtype),
                            "shape": list(k.shape)})
             blobs.append(k.tobytes())
             blobs.append(v.tobytes())

@@ -10,8 +10,10 @@ Serves the DecoderLM over HTTP with the reference's vLLM-compatible
 reuse, prompts prefill in ``--prefill-chunk`` chunks between segments,
 and every attention read runs through the hand-written paged kernel
 (B2); with ``--kv-cache rows`` each row has its own cache and prompts
-prefill through the flash kernel (B1). ``--device cpu`` runs it on the
-CPU.
+prefill through the flash kernel (B1). ``--role prefill`` and ``--role
+decode --handoff-peer URL`` split one paged deployment into a replica
+that prefills and ships KV pages and one that decodes
+(models/handoff.py). ``--device cpu`` runs it on the CPU.
 
 This module re-exports the public surface of serve_engine (device core),
 serve_batch (scheduling) and serve_http (protocol + CLI), as the

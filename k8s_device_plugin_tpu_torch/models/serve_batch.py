@@ -17,8 +17,12 @@ of either layout decode through the speculative verify loop
 (models/speculative.py); any sampled or logprob-wanting row switches the
 iteration to the plain segment.
 
-Not ported yet (ROADMAP.md): the static ``Batcher`` (A5) and the
-disaggregated prefill/decode roles (A3).
+The paged engine also serves the disaggregated roles (``role=``): a
+prefill replica exports each finished prompt's KV pages as a page-block
+bundle under a lease, a decode replica fetches bundles from its peer
+through a ``HandoffClient`` and imports the pages (models/handoff.py).
+
+Not ported yet (ROADMAP.md): the static ``Batcher`` (A5).
 
 The HTTP protocol surface lives in serve_http.py.
 """
@@ -26,6 +30,7 @@ The HTTP protocol surface lives in serve_http.py.
 from __future__ import annotations
 
 import collections
+import contextlib
 import logging
 import queue
 import threading
@@ -33,6 +38,7 @@ import time
 
 import numpy as np
 
+from k8s_device_plugin_tpu_torch.models import handoff as kv_handoff
 from k8s_device_plugin_tpu_torch.models.kv_cache import (
     SLO_CLASSES,
     SLO_RANK,
@@ -186,7 +192,7 @@ class _Request:
     __slots__ = ("prompt", "budget", "temp", "topk", "done", "slot",
                  "arrival", "asm", "stream_q", "last", "lps", "want_lp",
                  "deadline", "slo", "slo_rank", "ctx", "ledger",
-                 "__weakref__")
+                 "export", "__weakref__")
 
     def __init__(self, prompt, budget, temp, topk, asm, stream=False,
                  want_lp=False, deadline_s=None, slo="standard"):
@@ -224,6 +230,10 @@ class _Request:
         # Lifecycle ledger (obs/ledger.py): NOOP until submit_async
         # opens a real one.
         self.ledger = obs_ledger.NOOP
+        # Handoff prefill request (models/handoff.py): the row finishes
+        # at its first token with a serialized page-block bundle in
+        # slot["bundle"] instead of entering decode.
+        self.export = False
 
     def expired(self, now=None) -> bool:
         return (self.deadline is not None
@@ -257,6 +267,9 @@ class _BatcherBase:
         # Shutdown flag: set by close() on the signal/HTTP thread, read
         # by submitters on every thread.
         self._closed = threading.Event()
+        # Submits under way (see _submitting / _closed_and_idle).
+        self._submits_mu = threading.Lock()
+        self._submits = 0
         self._seed = seed
         self._key = None
         # Admission bound: requests admitted but unfinished (queued +
@@ -290,59 +303,102 @@ class _BatcherBase:
                      stop=None, stream: bool = False,
                      logprobs: bool = False,
                      deadline_s: float = 0.0,
-                     slo: str = "standard") -> _Request:
+                     slo: str = "standard",
+                     export: bool = False) -> _Request:
         """Enqueue a request and return it immediately.
 
         Streaming callers read ``req.stream_q`` until the ``None``
         sentinel, then inspect ``req.slot``; blocking callers use
         :meth:`wait`. Raises :class:`ServerClosingError` once shutdown
         has started and :class:`ShedError` when ``max_pending``
-        admitted-but-unfinished requests are already in flight."""
-        if self._closed.is_set():
-            raise ServerClosingError("server is shutting down")
-        if self.max_pending and self.q.unfinished_tasks >= self.max_pending:
-            # A full queue sheds its newest lowest-class queued request
-            # to admit a better-class arrival; only when nothing queued
-            # is strictly worse does the arrival itself shed.
-            victim = self.q.shed_lower(SLO_RANK.get(slo, 99))
-            if victim is None:
-                _c_shed().inc(reason="queue_full")
-                raise ShedError(
-                    f"pending queue full ({self.max_pending} in flight)"
+        admitted-but-unfinished requests are already in flight.
+        ``export`` marks a handoff prefill request (internal: the paged
+        engine finishes it at its first token with a page-block bundle
+        in ``slot["bundle"]`` instead of decoding — models/handoff.py)."""
+        # Counted from before the closed check until the request is
+        # queued, so the engine thread's exit test never sees an idle
+        # batcher that a submit is about to feed.
+        with self._submitting():
+            if self._closed.is_set():
+                raise ServerClosingError("server is shutting down")
+            if (self.max_pending
+                    and self.q.unfinished_tasks >= self.max_pending):
+                # A full queue sheds its newest lowest-class queued request
+                # to admit a better-class arrival; only when nothing queued
+                # is strictly worse does the arrival itself shed.
+                victim = self.q.shed_lower(SLO_RANK.get(slo, 99))
+                if victim is None:
+                    _c_shed().inc(reason="queue_full")
+                    raise ShedError(
+                        f"pending queue full ({self.max_pending} in flight)"
+                    )
+                _c_shed().inc(reason="preempted_class")
+                _c_preempted().inc(resource="queue")
+                victim.fail(
+                    f"shed: queue full, preempted by {slo}-class arrival",
+                    kind="shed",
                 )
-            _c_shed().inc(reason="preempted_class")
-            _c_preempted().inc(resource="queue")
-            victim.fail(
-                f"shed: queue full, preempted by {slo}-class arrival",
-                kind="shed",
+                self.q.task_done()
+                _g_queue_depth().set(self.q.unfinished_tasks)
+            from k8s_device_plugin_tpu_torch.models.serve_text import (
+                TextAssembler,
             )
-            self.q.task_done()
-            _g_queue_depth().set(self.q.unfinished_tasks)
-        from k8s_device_plugin_tpu_torch.models.serve_text import (
-            TextAssembler,
-        )
 
-        asm = TextAssembler(self.server.tokenizer.token_bytes, stop or ())
-        req = _Request(tokens, max_new_tokens, temperature, top_k, asm,
-                       stream=stream, want_lp=logprobs,
-                       deadline_s=deadline_s, slo=slo)
-        req.ctx = obs_trace.current_context()
-        req.slot["trace_id"] = (
-            req.ctx.trace_id if req.ctx is not None
-            else obs_trace.new_correlation_id("req")
-        )
-        if self.allocation_id:
-            req.slot["allocation_id"] = self.allocation_id
-        # Admit edge: stamped before the queue hand-off — after put()
-        # the engine thread owns the ledger.
-        req.ledger = self.ledgers.open(
-            slo=slo, trace_id=req.slot["trace_id"], ctx=req.ctx
-        )
-        with obs_trace.span("serve.batcher.submit", journal=False,
-                            slo=slo):
-            self.q.put(req)
-        _g_queue_depth().set(self.q.unfinished_tasks)
-        return req
+            asm = TextAssembler(self.server.tokenizer.token_bytes, stop or ())
+            req = _Request(tokens, max_new_tokens, temperature, top_k, asm,
+                           stream=stream, want_lp=logprobs,
+                           deadline_s=deadline_s, slo=slo)
+            req.export = bool(export)
+            req.ctx = obs_trace.current_context()
+            req.slot["trace_id"] = (
+                req.ctx.trace_id if req.ctx is not None
+                else obs_trace.new_correlation_id("req")
+            )
+            if self.allocation_id:
+                req.slot["allocation_id"] = self.allocation_id
+            # Admit edge: stamped before the queue hand-off — after put()
+            # the engine thread owns the ledger.
+            req.ledger = self.ledgers.open(
+                slo=slo, trace_id=req.slot["trace_id"], ctx=req.ctx
+            )
+            with obs_trace.span("serve.batcher.submit", journal=False,
+                                slo=slo):
+                self._route(req)
+            _g_queue_depth().set(self.q.unfinished_tasks)
+            return req
+
+    @contextlib.contextmanager
+    def _submitting(self):
+        with self._submits_mu:
+            self._submits += 1
+        try:
+            yield
+        finally:
+            with self._submits_mu:
+                self._submits -= 1
+
+    def _route(self, req: _Request) -> None:
+        """Queue hand-off seam. The decode role overrides this to run
+        the prefill hop on the submitting thread before enqueueing."""
+        self.q.put(req)
+
+    def _handoff_pending(self) -> int:
+        """In-flight handoff work :meth:`drain` must additionally wait
+        for — 0 everywhere except the disaggregated roles."""
+        return 0
+
+    def _closed_and_idle(self) -> bool:
+        """The engine thread's exit test: closed, with no submit under
+        way and nothing queued, in flight or pending a handoff. A
+        submit that starts after the closed flag is read raises
+        ServerClosingError, so the thread never strands a request."""
+        if not self._closed.is_set():
+            return False
+        with self._submits_mu:
+            if self._submits:
+                return False
+        return (self.q.unfinished_tasks == 0
+                and self._handoff_pending() == 0)
 
     def wait(self, req: _Request, timeout: float = 600.0):
         """Block until ``req`` decodes; returns (tokens, ttft)."""
@@ -394,12 +450,15 @@ class _BatcherBase:
     def drain(self, timeout: float = 60.0) -> bool:
         """Block until queued + in-flight work finishes (graceful
         shutdown). Tracks unfinished_tasks, which drops only after a
-        request's decode completes."""
+        request's decode completes, and :meth:`_handoff_pending` work:
+        handoff RPCs still in flight on submitting threads and exported
+        page leases awaiting their decode ack."""
         self.quiesce()
         drained = False
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
-            if self.q.unfinished_tasks == 0:
+            if (self.q.unfinished_tasks == 0
+                    and self._handoff_pending() == 0):
                 drained = True
                 break
             time.sleep(0.05)
@@ -414,14 +473,25 @@ class ContinuousBatcher(_BatcherBase):
     waiting prompts into free rows (one prefill, scattered into the
     pool cache), decode ONE ``segment_tokens``-long loop for every row,
     retire rows whose budget or EOS hit. ``kv_mode="paged"`` runs the
-    paged engine instead (``_loop_paged``).
+    paged engine instead (``_loop_paged``). The thread ends once the
+    batcher is closed and idle.
     """
+
+    # Disaggregation attributes default at class level so engine-level
+    # test drivers that build via ``__new__`` + ``_BatcherBase.__init__``
+    # (bypassing this class's __init__) get single-process behavior.
+    role = "both"
+    handoff_client = None
+    leases = None
+    _handoff_lock = None
+    _handoff_inflight = 0
 
     def __init__(self, server, max_batch: int = 4,
                  segment_tokens: int = 16, seed: int = 0,
                  max_pending: int = 0, kv_mode: str = "rows",
                  page_tokens: int = 0, pool_pages: int = 0,
-                 prefill_chunk: int = 0):
+                 prefill_chunk: int = 0, role: str = "both",
+                 handoff_client=None, lease_s: float | None = None):
         super().__init__(server, seed, max_pending=max_pending)
         self.rows = server._bucket(max(1, max_batch), 1, None)
         # segment_tokens <= 0 = auto-tune during warmup from this
@@ -460,6 +530,39 @@ class ContinuousBatcher(_BatcherBase):
                 "decoding with kv_mode='rows' prefills whole prompts — "
                 "drop --prefill-chunk or use --kv-cache paged"
             )
+        # Disaggregated serving role (models/handoff.py): "prefill"
+        # replicas export finished prompts as page-block bundles,
+        # "decode" replicas fetch bundles from a prefill peer
+        # (handoff_client) and import the pages; "both" is the
+        # single-process default.
+        if role not in ("prefill", "decode", "both"):
+            raise ValueError(
+                f"unknown role {role!r} (prefill | decode | both)"
+            )
+        if role != "both" and kv_mode != "paged":
+            raise ValueError(
+                "disaggregated roles are a paged-KV feature: the "
+                "handoff moves KV page blocks — use kv_mode='paged'"
+            )
+        if role == "decode" and handoff_client is None:
+            raise ValueError(
+                "role 'decode' requires a handoff_client pointing at a "
+                "prefill peer"
+            )
+        self.role = role
+        self.handoff_client = handoff_client
+        # Prefill-side lease accounting for exported page blocks. Any
+        # paged engine gets one ("both" serves as the in-proc prefill
+        # peer in tests).
+        self.leases = (
+            kv_handoff.LeaseTable(lease_s=lease_s)
+            if kv_mode == "paged" else None
+        )
+        # Handoff RPCs in flight on submitting threads: drain() waits
+        # for these alongside the queue (the bundle is enqueued only
+        # after the RPC returns, so neither count alone covers the gap).
+        self._handoff_lock = threading.Lock()
+        self._handoff_inflight = 0
         target = self._loop_paged if kv_mode == "paged" else self._loop
         threading.Thread(target=target, daemon=True,
                          name="llm-serve-engine").start()
@@ -476,6 +579,141 @@ class ContinuousBatcher(_BatcherBase):
         done.wait()
         log.info("continuous warmup in %.1fs (rows=%d, segment=%d)",
                  time.perf_counter() - t0, self.rows, self.segment)
+
+    # ------------------------------------------------------------------
+    # disaggregated serving: prefill/decode roles over the
+    # models/handoff.py page-block hop
+    # ------------------------------------------------------------------
+
+    def _route(self, req: _Request) -> None:
+        """Decode role: run the prefill hop on the submitting thread —
+        the RPC blocks the caller exactly like the local prefill it
+        replaces — then enqueue the bundle for the engine to import
+        (control lane: imports beat queued prompts to the pool). Any
+        hop failure degrades to a plain local prefill; the request
+        never observes the disaggregation except in TTFT."""
+        if self.role != "decode" or req.export:
+            self.q.put(req)
+            return
+        bundle = self._handoff_fetch(req)
+        if bundle is None:
+            kv_handoff._c_handoffs().inc(role="decode",
+                                         outcome="fallback")
+            self.q.put(req)
+        else:
+            self.q.put(("handoff", req, bundle))
+
+    def _handoff_fetch(self, req: _Request):
+        """The decode->prefill RPC for one request; None on failure
+        (the caller falls back to local prefill)."""
+        remaining = None
+        if req.deadline is not None:
+            remaining = max(0.05, req.deadline - time.monotonic())
+        payload = {
+            "tokens": list(req.prompt),
+            "max_new_tokens": req.budget,
+            "temperature": req.temp,
+            "top_k": req.topk,
+            "logprobs": req.want_lp,
+            "slo": req.slo,
+            "deadline_s": remaining or 0.0,
+            "traceparent": (obs_trace.format_traceparent(req.ctx)
+                            if req.ctx is not None else None),
+        }
+        with self._handoff_lock:
+            self._handoff_inflight += 1
+        try:
+            return self.handoff_client.fetch(payload,
+                                             deadline_s=remaining)
+        except Exception as e:  # tpulint: disable=TPU001 — the fallback seam: ANY hop failure (fault, timeout, open breaker, peer shed) degrades to local prefill rather than failing the request
+            log.warning("handoff to prefill peer failed (%s); "
+                        "re-prefilling locally", e)
+            return None
+        finally:
+            with self._handoff_lock:
+                self._handoff_inflight -= 1
+
+    def handle_prefill(self, payload: dict,
+                       timeout_s: float | None = None) -> bytes:
+        """Prefill-side ingest: run the chunked prefill for a decode
+        peer's prompt and return the serialized page-block bundle.
+
+        Called by the ``/v1/handoff/prefill`` HTTP route and by
+        ``InProcTransport``. Malformed/incompatible payloads raise
+        :class:`~..models.handoff.HandoffRejected` (permanent);
+        admission errors (shed/closing/deadline) propagate as-is and
+        the transports map them onto the retryable ``HandoffError`` —
+        the decode side then retries or falls back."""
+        faults.inject("handoff.recv", tokens=len(payload.get(
+            "tokens") or ()))
+        if self.kv_mode != "paged":
+            raise kv_handoff.HandoffRejected(
+                "not a paged prefill replica"
+            )
+        tokens = payload.get("tokens")
+        budget = payload.get("max_new_tokens")
+        slo = payload.get("slo") or "standard"
+        if (not isinstance(tokens, list) or not tokens
+                or not all(isinstance(t, int) for t in tokens)
+                or not isinstance(budget, int) or budget < 1
+                or slo not in SLO_RANK):
+            raise kv_handoff.HandoffRejected(
+                "bad handoff payload (tokens/max_new_tokens/slo)"
+            )
+        parent = obs_trace.parse_traceparent(payload.get("traceparent"))
+        # The span parents this replica's whole prefill to the decode
+        # side's request trace.
+        with obs_trace.span("serve.handoff.prefill", parent=parent,
+                            journal=False, tokens=len(tokens)):
+            req = self.submit_async(
+                tokens, budget,
+                temperature=float(payload.get("temperature") or 0.0),
+                top_k=int(payload.get("top_k") or 0),
+                logprobs=bool(payload.get("logprobs")),
+                deadline_s=float(payload.get("deadline_s") or 0.0),
+                slo=slo,
+                export=True,
+            )
+            self.wait(req, timeout=timeout_s or 30.0)
+        bundle = req.slot.get("bundle")
+        if bundle is None:
+            raise kv_handoff.HandoffRejected(
+                "prefill finished without a bundle"
+            )
+        return bundle.to_bytes()
+
+    def handle_ack(self, lease_id: str) -> bool:
+        """Decode-side ack for an exported lease: mark it released —
+        the engine thread frees the pages on its next reap tick."""
+        if self.leases is None:
+            return False
+        return self.leases.ack(str(lease_id))
+
+    def _handoff_pending(self) -> int:
+        n = 0
+        if self._handoff_lock is not None:
+            with self._handoff_lock:
+                n = self._handoff_inflight
+        if self.leases is not None:
+            n += self.leases.pending()
+        return n
+
+    def drain(self, timeout: float = 60.0) -> bool:
+        """Graceful shutdown at the disaggregation seam: the base wait
+        covers in-flight handoff RPCs (decode side) and unacked
+        exported leases (prefill side), so a SIGTERM'd prefill replica
+        finishes or releases every exported lease before exit. Leases
+        still pending when the window closes are force-released and
+        counted as orphans — the page refs die with the process either
+        way; the accounting must not."""
+        drained = super().drain(timeout)
+        if self.leases is not None and self.leases.pending():
+            n = self.leases.release_all()
+            log.warning(
+                "drain window closed with %d handoff lease(s) pending; "
+                "force-released (counted as orphans)", n,
+            )
+        return drained
 
     @staticmethod
     def _pow2_floor(n: int) -> int:
@@ -517,6 +755,8 @@ class ContinuousBatcher(_BatcherBase):
                             continue
                         got.append(item)
                 if not got and not live:
+                    if self._closed_and_idle():
+                        return
                     continue
                 # Requests that expired while queued: fail them now.
                 if got:
@@ -593,6 +833,10 @@ class ContinuousBatcher(_BatcherBase):
             try:
                 if eng is None:
                     eng = _PagedEngine(self)
+                # Resolved handoff leases (acked or expired) release
+                # their page refs here, every tick — engine-thread-only,
+                # so PagePool never crosses a thread.
+                eng.reap_handoff()
                 # ---- collect ---------------------------------------
                 if eng.free:
                     cap = len(eng.free)
@@ -613,20 +857,28 @@ class ContinuousBatcher(_BatcherBase):
                             continue
                         got.append(item)
                 if not got and not eng.live and not eng.filling:
+                    if self._closed_and_idle():
+                        return
                     continue
                 now = time.monotonic()
                 still = []
-                for req in got:
+                for item in got:
+                    # ("handoff", req, bundle) tuples are decode-role
+                    # imports riding the control lane.
+                    req = item[1] if isinstance(item, tuple) else item
                     if req.expired(now):
                         req.fail("deadline exceeded while queued",
                                  kind="deadline")
                         self.q.task_done()
                     else:
-                        still.append(req)
+                        still.append(item)
                 got = still
                 # ---- admit (prefix match -> filling state) ---------
-                for req in got:
-                    eng.admit(req)
+                for item in got:
+                    if isinstance(item, tuple):
+                        eng.admit_handoff(item[1], item[2])
+                    else:
+                        eng.admit(item)
                 got = []
                 # ---- one prefill chunk, then one decode segment ----
                 if eng.filling:
@@ -696,7 +948,8 @@ class ContinuousBatcher(_BatcherBase):
                 # drop every page, restart from a fresh pool and an
                 # empty prefix index.
                 log.exception("paged engine iteration failed")
-                pending = list(got)
+                pending = [it[1] if isinstance(it, tuple) else it
+                           for it in got]
                 if eng is not None:
                     pending += list(eng.live.values())
                     pending += [st["req"] for st in eng.filling.values()]
@@ -1291,6 +1544,12 @@ class _PagedEngine:
             if len(w) % P:
                 self.owned[r].discard(self.tables[r][n_pages - 1])
             t = int(first[r])
+            if req.export:
+                # Handoff prefill: this row's product is the page-block
+                # bundle, not a decode — export and finish.
+                self._export_row(r, req, w, t, float(first_lp[r]),
+                                 now, lt1)
+                continue
             req.slot["ttft"] = now - req.arrival
             req.ledger.first_token(lt1)
             # TTFT lands when the first token exists — once per request.
@@ -1467,11 +1726,186 @@ class _PagedEngine:
             else:
                 b._emit(req)
 
+    # ---- disaggregated handoff ---------------------------------------
+
+    def _export_row(self, r: int, req: _Request, w, t: int, lp: float,
+                    now: float, lt1: float) -> None:
+        """Prefill role: gather the finished row's pages to host, lease
+        them, and finish the request with the bundle.
+
+        The lease takes its OWN page references before the row drops
+        its table — the block stays resident until the decode ack (or
+        lease expiry) releases it on a later reap tick, so a decode
+        crash mid-import never leaves this side holding freed pages."""
+        b, srv = self.b, self.srv
+        tbl = list(self.tables[r])
+        payload = srv.export_pages(self.pool, tbl)
+        self.pagepool.ref(tbl)
+        lease_id = b.leases.export(tbl)
+        bundle = kv_handoff.PageBlockBundle.from_pool_payload(
+            payload,
+            lease_id=lease_id, lease_s=b.leases.lease_s, window=w,
+            first_token=t, first_lp=lp, budget=req.budget,
+            temp=req.temp, topk=req.topk, want_lp=req.want_lp,
+            slo=req.slo, page_tokens=self.cfg.page_tokens,
+            traceparent=(obs_trace.format_traceparent(req.ctx)
+                         if req.ctx is not None else None),
+        )
+        req.slot["bundle"] = bundle
+        req.slot["lease_id"] = lease_id
+        req.slot["tokens"] = list(w) + [t]
+        req.slot["ttft"] = now - req.arrival
+        req.ledger.first_token(lt1)
+        kv_handoff._c_handoffs().inc(role="prefill", outcome="export")
+        req.finish_ok()
+        b.q.task_done()
+        _g_queue_depth().set(b.q.unfinished_tasks)
+        self._drop_row(r)
+
+    def admit_handoff(self, req: _Request, bundle) -> None:
+        """Decode role: import a handed-off page block and enter the
+        live (decoding) state directly — no local prefill.
+
+        The first-token consumption below mirrors the prefill finish
+        arm statement for statement, and the bundle carries the
+        post-clamp pre-first-token budget, so the pair's tokens and
+        logprobs equal the single-process engine's. Any failure BEFORE
+        host-state mutation (stale lease, incompatible geometry,
+        allocation pressure, import fault) falls back to a local
+        re-prefill or a clean shed — the request still holds its
+        original prompt, so nothing is lost."""
+        b, srv, cfg = self.b, self.srv, self.cfg
+        w = list(bundle.window)
+        n_pages = cfg.pages_for(len(w))
+        compatible = (
+            bundle.page_tokens == cfg.page_tokens
+            and bundle.num_layers == srv.config.num_layers
+            and bundle.num_pages == n_pages
+        )
+        if not compatible or bundle.expired():
+            outcome = "stale" if compatible else "incompatible"
+            if compatible:
+                # The lease lapsed before import: the prefill copy is
+                # already reclaimed over there, and the bundle here is
+                # dead weight — orphaned on this side too.
+                kv_handoff._c_orphans().inc(side="decode")
+            kv_handoff._c_handoffs().inc(role="decode", outcome=outcome)
+            log.warning("handoff bundle %s %s; re-prefilling locally",
+                        bundle.lease_id, outcome)
+            self.admit(req)
+            return
+        t = bundle.first_token
+        now = time.perf_counter()
+        lt1 = b.ledgers.now()
+        hit_eos = srv.eos_id is not None and t == srv.eos_id
+        if hit_eos or bundle.budget <= 1:
+            # The first token already ends the request — finish without
+            # touching the pool, ack so the peer releases promptly.
+            req.budget = bundle.budget
+            req.slot["ttft"] = now - req.arrival
+            req.ledger.first_token(lt1)
+            _h_ttft().observe(req.slot["ttft"], path="paged")
+            if hit_eos:
+                req.slot["finish_reason"] = "stop"
+            else:
+                req.asm.push([t])
+                if req.want_lp:
+                    req.lps.append(bundle.first_lp)
+                req.last = t
+                req.budget -= 1
+            b._finish(req)
+            self._ack(bundle.lease_id)
+            kv_handoff._c_handoffs().inc(role="decode",
+                                         outcome="imported")
+            return
+        r = self.free.pop(0)
+        try:
+            ids = self._alloc(n_pages, req.slo_rank, led=req.ledger)
+        except _PoolExhausted:
+            self._shed_row(r, req,
+                           "KV page pool exhausted at handoff import")
+            # The request is dead either way — release the peer's copy
+            # now instead of making it wait out the lease.
+            self._ack(bundle.lease_id)
+            return
+        try:
+            faults.inject("handoff.import", lease=bundle.lease_id,
+                          pages=n_pages)
+            with obs_trace.span(
+                "serve.handoff.import",
+                parent=obs_trace.parse_traceparent(bundle.traceparent),
+                journal=False, pages=n_pages,
+            ):
+                self.pool = srv.import_pages(
+                    self.pool, ids, bundle.to_pool_payload()
+                )
+        except (ValueError, TypeError, RuntimeError) as e:
+            # Import failed mid-flight (armed fault, payload/device
+            # mismatch): release what was allocated and re-prefill
+            # locally. NO ack — this side cannot prove the pages
+            # landed, so the peer reclaims via lease expiry.
+            self.pagepool.release(ids)
+            self.free.append(r)
+            kv_handoff._c_handoffs().inc(role="decode",
+                                         outcome="import_error")
+            log.warning("handoff import for %s failed (%s); "
+                        "re-prefilling locally", bundle.lease_id, e)
+            self.admit(req)
+            return
+        self.tables[r] = list(ids)
+        self.owned[r] = set(ids)
+        self.row_len[r] = len(w)
+        # Same publication the local finish arm does: the imported
+        # prompt's pages serve future prefix hits on THIS replica, and
+        # the partial tail page becomes index-owned (read-only) so the
+        # row's first decode write copy-on-extends it.
+        self.index.insert(w, self.tables[r][:n_pages])
+        if len(w) % cfg.page_tokens:
+            self.owned[r].discard(self.tables[r][n_pages - 1])
+        req.budget = bundle.budget
+        req.slot["ttft"] = now - req.arrival
+        req.ledger.first_token(lt1)
+        # TTFT lands when the first token exists — here it arrived with
+        # the bundle; once per request.
+        _h_ttft().observe(req.slot["ttft"], path="paged")
+        req.asm.push([t])
+        if req.want_lp:
+            req.lps.append(bundle.first_lp)
+        req.last = t
+        req.budget -= 1
+        if req.asm.finished:  # single-token stop sequence
+            req.budget = 0
+        if req.budget <= 0:
+            b._finish(req)
+            self._drop_row(r)
+        else:
+            b._emit(req)
+            self.live[r] = req
+        self._ack(bundle.lease_id)
+        kv_handoff._c_handoffs().inc(role="decode", outcome="imported")
+
+    def _ack(self, lease_id: str) -> None:
+        """Release the peer's lease (best-effort; a lost ack costs the
+        peer one lease expiry, never correctness)."""
+        if self.b.handoff_client is not None:
+            self.b.handoff_client.ack(lease_id)
+
+    def reap_handoff(self) -> None:
+        """Release page refs of resolved (acked or expired) leases —
+        called once per engine iteration, so the ``PagePool`` itself
+        never crosses a thread."""
+        leases = self.b.leases
+        if leases is None or not leases.pending():
+            return
+        for pages in leases.take_resolved():
+            self.pagepool.release(pages)
+
     # ---- warmup -------------------------------------------------------
 
     def warmup(self) -> None:
         """Run every (chunk-bucket x page-bucket) prefill, each page
-        bucket's decode segment and each copy bucket once, so
+        bucket's decode segment, each copy bucket and, in a
+        disaggregated role, each hop bucket once, so
         steady-state serving never pays a first call in-band (the
         tpu_serve_jit_compiles_total counter must stay flat after
         this). Every warmup write lands on the scratch page."""
@@ -1512,6 +1946,18 @@ class _PagedEngine:
         while n <= rows:
             self.pool = srv.copy_pages(self.pool, [0] * n, [0] * n)
             n *= 2
+        if b.role != "both":
+            # Handoff hop programs: the export gather and import scatter
+            # run once per power-of-two page-count bucket. Scratch-page
+            # ids make every warmup transfer a no-op on real state.
+            n = 1
+            cap = srv._bucket(self.cfg.max_pages_per_row, 1, None)
+            while n <= cap:
+                ids = [0] * n
+                zeros = srv.export_pages(self.pool, ids)
+                if b.role == "decode":
+                    self.pool = srv.import_pages(self.pool, ids, zeros)
+                n *= 2
         srv.max_rows = rows
         if srv.spec_k is not None:
             # warmup decodes must not pollute acceptance telemetry

@@ -5,7 +5,8 @@ the model on one card (no mesh, no tensor-parallel sharding), prefill
 through the flash kernel, decode loops, sampling, the batch entry
 points the rows-mode continuous batcher (serve_batch.py) drives, and
 the paged programs its paged engine drives (chunked prefill and decode
-segments over a page pool, read through kernel B2; page copies), and
+segments over a page pool, read through kernel B2; page copies; the
+export and import of page blocks for the disaggregated roles), and
 self-draft speculative decoding over either KV layout
 (models/speculative.py). No HTTP here — the protocol surface lives in
 serve_http.py.
@@ -902,4 +903,82 @@ class LMServer:
         return self._dispatch(
             "page_copy", self._paged_cache, ("copy", n), build,
             pool, _long(src, dev), _long(dst, dev),
+        )
+
+    @torch.inference_mode()
+    def export_pages(self, pool, page_ids):
+        """Gather the K/V contents of ``page_ids`` to host for handoff.
+
+        Returns the pool-shaped host tree (``{layer{i}: {attn:
+        {k_pages, v_pages}}}`` of ``[len(page_ids), page_tokens,
+        kv_heads, head_dim]`` numpy arrays; bf16 pages as their 16-bit
+        words, models/handoff.py ``host_array``) the decode side
+        scatters via :meth:`import_pages`. Ids pad to a power-of-two
+        bucket with scratch-page reads trimmed from the host result.
+        The pool is only read: the exporter keeps serving from it while
+        the handoff lease is pending, and releases the pages on the
+        decode ack (or lease expiry)."""
+        from k8s_device_plugin_tpu_torch.models.handoff import host_array
+
+        n = self._bucket(len(page_ids), 1, None)
+        ids = list(page_ids) + [0] * (n - len(page_ids))
+
+        def build():
+            def run(pool, ids):
+                # one gather and one transfer for every layer's K and V
+                return torch.stack([p[ids]
+                                    for p in pool.k_pages + pool.v_pages])
+
+            return run
+
+        out = self._dispatch(
+            "page_export", self._paged_cache, ("export", n), build,
+            pool, _long(ids, self.device),
+        )
+        host = host_array(out)[:, :len(page_ids)]
+        layers = len(pool.k_pages)
+        return {
+            f"layer{i}": {"attn": {"k_pages": host[i],
+                                   "v_pages": host[layers + i]}}
+            for i in range(layers)
+        }
+
+    @torch.inference_mode()
+    def import_pages(self, pool, page_ids, payload):
+        """Scatter a handed-off page block into ``page_ids``, in place.
+
+        ``payload`` is the pool-shaped host tree of :meth:`export_pages`
+        (leaves ``[len(page_ids), ...]``). Ids pad to a power-of-two
+        bucket with zero-writes to the scratch page (page 0 is never
+        allocated, so the padding is a no-op by construction). A payload
+        that is not shaped like the pool raises ValueError or
+        RuntimeError."""
+        from k8s_device_plugin_tpu_torch.models.handoff import to_tensor
+
+        n = self._bucket(len(page_ids), 1, None)
+        ids = list(page_ids) + [0] * (n - len(page_ids))
+        layers = len(pool.k_pages)
+        try:
+            leaves = [payload[f"layer{i}"]["attn"][leaf]
+                      for leaf in ("k_pages", "v_pages")
+                      for i in range(layers)]
+        except KeyError as e:
+            raise ValueError(f"page block lacks {e}") from e
+        src = torch.stack([to_tensor(a) for a in leaves])
+        if n != len(page_ids):
+            pad = src.new_zeros((src.shape[0], n - len(page_ids))
+                                + src.shape[2:])
+            src = torch.cat([src, pad], 1)
+
+        def build():
+            def run(pool, ids, src):
+                for p, s in zip(pool.k_pages + pool.v_pages, src):
+                    p.index_copy_(0, ids, s.to(p.dtype))
+                return pool
+
+            return run
+
+        return self._dispatch(
+            "page_import", self._paged_cache, ("import", n), build,
+            pool, _long(ids, self.device), src.to(self.device),
         )

@@ -8,12 +8,17 @@ debug listings, and graceful-shutdown main(), over the PyTorch engine
 KV layout: ``--kv-cache paged`` (the default, as in the reference) or
 ``rows``.
 
+Disaggregated serving, as in the reference: ``--role prefill`` serves
+``POST /v1/handoff/prefill`` and ``/v1/handoff/ack`` (chunked prefill ->
+page-block bundles, no client completions), ``--role decode
+--handoff-peer URL`` fetches bundles from that peer and decodes
+(models/handoff.py).
+
 The flag surface is the reference's, narrowed where the port still
 lacks a module (each narrowing is a gap in ROADMAP.md section C):
-``--batching continuous`` (the static batcher is A5), ``--role both``
-(the handoff roles are A3); ``--checkpoint`` raises. ``--device`` is new: the card by default,
-``cpu`` on request (the counterpart of the reference's
-``JAX_PLATFORMS``).
+``--batching continuous`` (the static batcher is A5); ``--checkpoint``
+raises. ``--device`` is new: the card by default, ``cpu`` on request
+(the counterpart of the reference's ``JAX_PLATFORMS``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from k8s_device_plugin_tpu_torch.models import handoff as kv_handoff
 from k8s_device_plugin_tpu_torch.models.kv_cache import SLO_CLASSES
 from k8s_device_plugin_tpu_torch.models.serve_batch import ContinuousBatcher
 from k8s_device_plugin_tpu_torch.models.serve_engine import (
@@ -139,10 +145,21 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="paged mode: prompt tokens prefilled per engine "
                         "iteration; long prompts interleave with decode "
                         "segments in chunks this size (0 = default 64)")
-    p.add_argument("--role", choices=("both",), default="both",
-                   help="serving role: both = single process "
-                        "(disaggregated prefill/decode is not ported "
-                        "yet: ROADMAP.md, A3)")
+    p.add_argument("--role", choices=("prefill", "decode", "both"),
+                   default="both",
+                   help="disaggregated serving role (paged continuous "
+                        "mode only): prefill = serve /v1/handoff/* "
+                        "(chunked prefill -> page-block bundles, no "
+                        "client completions); decode = fetch bundles "
+                        "from --handoff-peer, import pages, stream "
+                        "tokens; both = single-process default "
+                        "(docs/serving.md)")
+    p.add_argument("--handoff-peer", default=None,
+                   help="prefill peer base URL for --role decode, e.g. "
+                        "http://prefill-svc:8888; transfers run under "
+                        "TPU_HANDOFF_DEADLINE_S with retries and a "
+                        "circuit breaker, and fall back to local "
+                        "prefill on failure")
     p.add_argument("--max-pending", type=int, default=128,
                    help="admission bound: requests admitted but not "
                         "yet finished; past it submits shed with 429 "
@@ -162,10 +179,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def make_handler(server, batcher, default_timeout_s: float = 0.0,
-                 trace_debug: bool = False):
+                 trace_debug: bool = False, role: str = "both"):
     """Build the completions-API handler class over ``server``/
     ``batcher`` (module-level so tests can serve any engine through
-    the real protocol surface)."""
+    the real protocol surface).
+
+    ``role`` is the disaggregated-serving role: prefill replicas serve
+    ``POST /v1/handoff/prefill`` (prompt in, serialized page-block
+    bundle out) and ``POST /v1/handoff/ack`` (lease release) and refuse
+    client completions with a 503 so a misrouted gateway fails loud;
+    decode/both replicas serve completions only — the decode side of a
+    handoff is an outbound client, not a route."""
     from k8s_device_plugin_tpu_torch.obs import http as obs_http
 
     class Handler(BaseHTTPRequestHandler):
@@ -234,8 +258,25 @@ def make_handler(server, batcher, default_timeout_s: float = 0.0,
                 self._send(404, {"error": "not found"})
 
         def do_POST(self):
+            if role == "prefill" and self.path in (
+                "/v1/handoff/prefill", "/v1/handoff/ack"
+            ):
+                self._handle_handoff()
+                return
             if self.path != "/v1/completions":
                 self._send(404, {"error": "not found"})
+                return
+            if role == "prefill":
+                # Prefill replicas own no decode loop — a completions
+                # request landing here is a routing bug upstream, shed
+                # as retryable so the gateway re-resolves the decode
+                # Service instead of wedging on a token stream that
+                # will never start.
+                _c_http_errors().inc(cls="role")
+                self._send(503, {"error": "prefill-role replica: use "
+                                          "/v1/handoff/prefill",
+                                 "class": "role"},
+                           headers=[("Retry-After", "1")])
                 return
             # Root span of the request trace; adopts an inbound W3C
             # traceparent header when the caller sent one.
@@ -245,6 +286,48 @@ def make_handler(server, batcher, default_timeout_s: float = 0.0,
             with obs_trace.span("serve.request", parent=parent,
                                 journal=False, path="/v1/completions"):
                 self._handle_completion()
+
+        def _handle_handoff(self):
+            """Prefill-role wire surface.
+
+            ``/v1/handoff/prefill``: JSON payload in, raw
+            ``PageBlockBundle`` bytes out (octet-stream — the bundle
+            carries its own framed header). ``/v1/handoff/ack``: decode
+            confirms the import; the lease's page refs drop on the next
+            engine tick. Rejections (malformed payload, wrong engine
+            mode) are 400s the client must NOT retry; overload/closing
+            flow through ``_fail`` so the decode side sees the same
+            429/503 + Retry-After contract as completions clients.
+            """
+            length = int(self.headers.get("Content-Length", 0))
+            try:
+                payload = json.loads(self.rfile.read(length) or b"{}")
+            except json.JSONDecodeError:
+                self._bad("bad json")
+                return
+            if not isinstance(payload, dict):
+                self._bad("handoff payload must be an object")
+                return
+            if self.path == "/v1/handoff/ack":
+                ok = batcher.handle_ack(payload.get("lease_id"))
+                self._send(200, {"ok": bool(ok)})
+                return
+            try:
+                data = batcher.handle_prefill(
+                    payload, timeout_s=default_timeout_s or None
+                )
+            except (kv_handoff.HandoffRejected, ValueError,
+                    TypeError) as e:
+                self._bad(f"handoff rejected: {e}")
+                return
+            except Exception as e:  # tpulint: disable=TPU001 — wire boundary: every engine-side failure class must map to a status code here, not a dropped connection
+                self._fail(e, "handoff failed")
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
 
         def _handle_completion(self):
             length = int(self.headers.get("Content-Length", 0))
@@ -481,6 +564,16 @@ def main(argv=None, on_ready=None) -> int:
     parser = build_arg_parser()
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    if args.role != "both":
+        # Fail at the flag layer, not deep in batcher construction: a
+        # Helm values typo should print the contract, not a traceback.
+        if args.batching != "continuous" or args.kv_cache != "paged":
+            parser.error("--role prefill/decode requires --batching "
+                         "continuous and --kv-cache paged (page blocks "
+                         "are the handoff unit)")
+        if args.role == "decode" and not args.handoff_peer:
+            parser.error("--role decode requires --handoff-peer "
+                         "(prefill base URL)")
 
     from k8s_device_plugin_tpu_torch.models import transformer
     from k8s_device_plugin_tpu_torch.obs import slo as obs_slo
@@ -500,6 +593,15 @@ def main(argv=None, on_ready=None) -> int:
                           device=args.device)
         if args.draft_layers:
             server.enable_draft(args.draft_layers, k=args.speculative_k)
+        handoff_client = None
+        if args.role == "decode":
+            # Outbound page-fetch client: per-transfer deadline, retry
+            # budget, and a circuit breaker per peer — the wire hop must
+            # degrade to local re-prefill, never hang the submit path.
+            handoff_client = kv_handoff.HandoffClient(
+                kv_handoff.HTTPTransport(args.handoff_peer),
+                peer=args.handoff_peer,
+            )
         batcher = ContinuousBatcher(
             server, max_batch=args.max_batch,
             segment_tokens=args.segment_tokens, seed=args.seed,
@@ -507,6 +609,8 @@ def main(argv=None, on_ready=None) -> int:
             page_tokens=args.kv_page_tokens,
             pool_pages=args.kv_pool_pages,
             prefill_chunk=args.prefill_chunk,
+            role=args.role,
+            handoff_client=handoff_client,
         )
         if not args.no_warmup:
             batcher.warmup()
@@ -517,7 +621,8 @@ def main(argv=None, on_ready=None) -> int:
 
     Handler = make_handler(server, batcher,
                            default_timeout_s=args.request_timeout,
-                           trace_debug=args.trace_debug)
+                           trace_debug=args.trace_debug,
+                           role=args.role)
     httpd = ThreadingHTTPServer(("0.0.0.0", args.port), Handler)
 
     def _graceful(signum, frame):
@@ -535,9 +640,9 @@ def main(argv=None, on_ready=None) -> int:
         signal.signal(signal.SIGINT, _graceful)
 
     log_event("llm-serve", "serving", note=str(server.device))
-    log.info("llm-serve listening on :%d (%s batching, %s KV, %s)",
-             httpd.server_address[1], args.batching, args.kv_cache,
-             server.device)
+    log.info("llm-serve listening on :%d (%s batching, %s KV, role %s, "
+             "%s)", httpd.server_address[1], args.batching, args.kv_cache,
+             args.role, server.device)
     if on_ready is not None:
         on_ready(httpd, batcher)
     httpd.serve_forever()

@@ -1,10 +1,13 @@
 """The PyTorch port stands alone: no JAX, nothing of the reference.
 
 An AST walk of ``k8s_device_plugin_tpu_torch`` and ``chip_smoke.py``
-finds no import of jax, flax, optax, orbax or the reference package
-``k8s_device_plugin_tpu`` (at module level or inside functions). The
-host-only modules the port needs are copies of the reference's, equal to
-their source after the import-prefix substitution; COPIES is the list.
+finds no import of jax, flax, optax, orbax, ml_dtypes or the reference
+package ``k8s_device_plugin_tpu`` (at module level or inside functions).
+The host-only modules the port needs are copies of the reference's,
+equal to their source after the import-prefix substitution; COPIES is
+the list. models/handoff.py left it when its bundles learned to carry
+bfloat16 without ``ml_dtypes``: every definition of it but those is
+still the reference's (HANDOFF_CHANGED, HANDOFF_ADDED).
 """
 
 import ast
@@ -15,7 +18,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "k8s_device_plugin_tpu_torch")
 REF = os.path.join(REPO, "k8s_device_plugin_tpu")
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax",
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
              "k8s_device_plugin_tpu"}
 
 COPIES = [
@@ -24,8 +27,12 @@ COPIES = [
     "utils/chiplog.py", "utils/faults.py", "utils/retry.py",
     "utils/watchdog.py",
     "models/tokenizer.py", "models/serve_text.py", "models/kv_cache.py",
-    "models/handoff.py",
 ]
+# models/handoff.py: the definitions that differ from the reference's
+# (bfloat16 held as tagged 16-bit words) and those the port adds.
+HANDOFF_CHANGED = {"_np_dtype", "PageBlockBundle.to_bytes"}
+HANDOFF_ADDED = {"import torch", "BF16_WORDS", "_dtype_name", "host_array",
+                 "to_tensor"}
 
 
 def _port_sources():
@@ -74,3 +81,53 @@ def test_copy_equals_its_reference(rel):
                                 "k8s_device_plugin_tpu_torch.")
     with open(os.path.join(PORT, rel)) as f:
         assert f.read() == want, f"{rel} drifted from its reference"
+
+
+def _definitions(path):
+    """{name: ast dump} of a module's (or a class body's) statements: a
+    def, class or assignment by its name, an import by its source, the
+    docstring as "doc"; a class's methods under "Class.method"."""
+    with open(path) as f:
+        src = f.read().replace("k8s_device_plugin_tpu.",
+                               "k8s_device_plugin_tpu_torch.")
+    return _body_definitions(ast.parse(src).body, src)
+
+
+def _body_definitions(body, src, prefix=""):
+    out = {}
+    for i, node in enumerate(body):
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            name = prefix + node.name
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            name = ast.get_source_segment(src, node)
+        elif isinstance(node, ast.Assign):
+            name = prefix + ast.unparse(node.targets[0])
+        elif i == 0 and isinstance(node, ast.Expr):
+            name = prefix + "doc"
+        else:
+            name = prefix + ast.dump(node)
+        if isinstance(node, ast.ClassDef):
+            out.update(_body_definitions(node.body, src, name + "."))
+            node = ast.ClassDef(node.name, node.bases, node.keywords, [],
+                                node.decorator_list)
+        out[name] = ast.dump(node)
+    return out
+
+
+def test_handoff_is_the_reference_but_its_bfloat16_wire():
+    """The port's models/handoff.py against the reference's: the same
+    definitions, equal after the import-prefix substitution, except
+    HANDOFF_CHANGED (bfloat16 held as tagged words, without ml_dtypes)
+    and the port's additions HANDOFF_ADDED; no ml_dtypes anywhere."""
+    rel = "models/handoff.py"
+    ref = _definitions(os.path.join(REF, rel))
+    port = _definitions(os.path.join(PORT, rel))
+    assert set(port) - set(ref) == HANDOFF_ADDED
+    assert set(ref) - set(port) == set()
+    drifted = sorted(n for n in ref
+                     if n not in HANDOFF_CHANGED and ref[n] != port[n])
+    assert drifted == []
+    assert all(ref[n] != port[n] for n in HANDOFF_CHANGED)
+    assert "ml_dtypes" in FORBIDDEN
+    with open(os.path.join(PORT, rel)) as f:
+        assert "import ml_dtypes" not in f.read()

@@ -17,10 +17,13 @@ products; the reference's own bf16 backward bar is 0.25,
 tests/test_workloads.py:147-150).
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+from k8s_device_plugin_tpu_torch.models import handoff as kv_handoff
 from k8s_device_plugin_tpu_torch.models import transformer
 from k8s_device_plugin_tpu_torch.models.serve import (
     ContinuousBatcher,
@@ -495,6 +498,74 @@ def test_paged_spec_engine_on_card_matches_plain(cuda):
     assert srv.spec_stats_snapshot()["verify_rounds"] > 0
     assert paged_attention.PAGED_ATTN.launches > before
     assert eng.drain(timeout=30)
+
+
+def test_handoff_page_block_round_trip_bf16_on_card(cuda, monkeypatch):
+    """``export_pages`` -> bundle bytes -> ``import_pages`` on the card
+    in bfloat16, with ``ml_dtypes`` unimportable: the pages land
+    bit-equal at other page ids of another pool."""
+    monkeypatch.setitem(sys.modules, "ml_dtypes", None)
+    srv = LMServer(config=transformer.LMConfig(
+        vocab_size=256, num_layers=2, num_heads=2, embed_dim=128,
+        mlp_dim=256, max_seq_len=128), device=cuda)
+    src = srv.make_paged_pool(12, 16)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    with torch.inference_mode():
+        for p in src.k_pages + src.v_pages:
+            p.copy_(torch.randn(p.shape, generator=gen, device=cuda))
+    ids, dst_ids = [4, 9, 1, 7, 2], [11, 3, 8, 5, 6]
+    wire = kv_handoff.PageBlockBundle.from_pool_payload(
+        srv.export_pages(src, ids), lease_id="gpu", lease_s=30.0,
+        window=list(range(70)), first_token=0, first_lp=0.0, budget=1,
+        temp=0.0, topk=0, want_lp=False, slo="standard",
+        page_tokens=16).to_bytes()
+    assert b'"dtype": "bfloat16"' in wire
+    dst = srv.import_pages(srv.make_paged_pool(12, 16), dst_ids,
+                           kv_handoff.PageBlockBundle.from_bytes(
+                               wire).to_pool_payload())
+    for a, b in zip(src.k_pages + src.v_pages, dst.k_pages + dst.v_pages):
+        assert b.dtype == torch.bfloat16 and b.device == a.device
+        assert torch.equal(a[ids].view(torch.int16),
+                           b[dst_ids].view(torch.int16))
+
+
+def test_handoff_pair_matches_single_paged_engine_on_card(cuda):
+    """A prefill/decode pair of paged engines over the in-process
+    transport on the card (B2's chunk route on the prefill side, its
+    decode route on the decode side) decodes the single paged engine's
+    tokens in float32, logprobs within 1e-4, every request handed
+    off."""
+    srv = LMServer(config=SMALL, device=cuda)
+    prompts = [list(range(3, 40)), [5, 17, 99], list(range(3, 19)) + [7]]
+
+    def serve(eng):
+        out = []
+        for p in prompts:
+            req = eng.submit_async(p, 12, logprobs=True)
+            eng.wait(req, timeout=120)
+            out.append((req.slot["tokens"], req.slot["logprobs"]))
+        return out
+
+    def engine(**kw):
+        return ContinuousBatcher(srv, max_batch=4, segment_tokens=4,
+                                 kv_mode="paged", page_tokens=16, **kw)
+
+    single = engine()
+    want = serve(single)
+    assert single.drain(timeout=30)
+    prefill = engine(role="prefill")
+    client = kv_handoff.HandoffClient(kv_handoff.InProcTransport(prefill),
+                                      peer="inproc")
+    decode = engine(role="decode", handoff_client=client)
+    before = paged_attention.PAGED_ATTN.launches
+    got = serve(decode)
+    assert paged_attention.PAGED_ATTN.launches > before
+    assert [t for t, _ in got] == [t for t, _ in want]
+    for (_, g), (_, w) in zip(got, want):
+        assert max(abs(a - b) for a, b in zip(g, w)) <= 1e-4
+    assert len(client.latencies_s) == len(prompts)
+    assert decode.drain(timeout=30)
+    assert prefill.drain(timeout=30)
 
 
 @pytest.mark.parametrize("L", [1, 64])
