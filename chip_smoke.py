@@ -70,6 +70,29 @@ exits non-zero without a result:
   replica's, B1 never; aggregate tokens/s, the share of its bf16 tokens
   serve_paged's agree with, the hop's latency and bundle size; one bf16
   page block through export, bundle bytes and import, bit-equal.
+- ``serve_static``: the static batcher. float32 at the full-width
+  default config: the ``Batcher``'s tokens for the serve phase's prompts
+  equal ``complete_batch``'s over the same batches and the rows
+  ContinuousBatcher's, logprobs within 1e-4. Then the daemon with
+  ``--batching static --max-batch 4 --batch-window-ms 8 --warmup-tokens
+  48`` (bf16) over the serve phase's traffic: startup with warmup, TTFTs,
+  aggregate tokens/s, the static groups; B1 launched exactly layers x
+  prefills during warmup (row buckets x length buckets + 2 x row
+  buckets, the reference's count) and layers x groups during the
+  traffic, B2 never; no program built for the first time during the
+  traffic; the share of its bf16 tokens the serve phase's agree with.
+- ``serve_checkpoint``: serving from a checkpoint directory at
+  TinyLlama-1.1B's published shape (22 layers, hidden 2048, 32 heads
+  over 4 kv heads, MLP 5632 SwiGLU, RMSNorm, RoPE, vocab 32000, context
+  2048), random weights from seed 0 written by ``save_checkpoint``
+  (float32): the file's bytes, the write's and ``LMServer(checkpoint=)``'s
+  seconds; the loaded server equal to the in-memory one in float32
+  (tokens identical, logprobs bit-equal); then two daemons from the one
+  directory over serve_paged's traffic: the default (paged KV, B2
+  launched exactly layers x (chunks + decode steps), B1 never) and
+  ``--batching static`` (B1 layers x groups, B2 never), tokens/s, TTFTs,
+  the bf16 agreement between the two. The directory is removed
+  afterwards.
 - ``kernel_bwd``: the backward kernels B3 (dQ) and B4 (dK/dV) through
   ``FlashAttention.backward`` against the plain backward on the same
   inputs, random output and lse cotangents, at the training shapes and
@@ -123,6 +146,9 @@ PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # the ones reported for the kernel.
 KERNEL_CASES = [
     ("serve_b4_s1024_bf16", 4, 16, 16, 1024, 64, "bfloat16", True),
+    # TinyLlama-1.1B's attention (32 q heads over 4 kv heads, d = 64): the
+    # static checkpoint daemon's widest prefill
+    ("tinyllama_b4_s1024_bf16", 4, 32, 4, 1024, 64, "bfloat16", True),
     ("b1_s1_bf16", 1, 16, 16, 1, 64, "bfloat16", True),
     ("b1_s128_bf16", 1, 16, 16, 128, 64, "bfloat16", True),
     ("b1_s1024_bf16", 1, 16, 16, 1024, 64, "bfloat16", True),
@@ -150,6 +176,7 @@ KERNEL_CASES = [
     ("pad_d192_s200_f32", 2, 4, 2, 200, 192, "float32", True),
 ]
 TRAIN_FWD_CASE = "train_b8_s2048_d128_bf16"
+TINYLLAMA_FWD_CASE = "tinyllama_b4_s1024_bf16"
 # Tolerances against the plain version on the same inputs. float32: the
 # two differ only in summation order. bfloat16: the plain version rounds
 # QK^T to bf16 before the softmax (as the reference's jnp code does) and
@@ -379,6 +406,7 @@ def phase_kernel() -> tuple[dict, dict]:
         cases.append(row)
     main = cases[0]
     train = next(c for c in cases if c["case"] == TRAIN_FWD_CASE)
+    tiny = next(c for c in cases if c["case"] == TINYLLAMA_FWD_CASE)
     summary = {
         "name": attention.FLASH_FWD.name, "route": "cuda",
         "source": attention.FLASH_FWD.source,
@@ -390,6 +418,9 @@ def phase_kernel() -> tuple[dict, dict]:
         "train_case": {k: train[k] for k in (
             "case", "ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
             "tflops", "bound_share")},
+        "tinyllama_case": {k: tiny[k] for k in (
+            "case", "ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "tflops", "bound_share")},
     }
     return {"phase": "kernel", "ok": True, "cases": cases}, summary
 
@@ -567,6 +598,15 @@ PAGED_CASES = [
      "bfloat16"),
     ("verify_gqa_L4_p16_bf16", 4, 4, 16, 4, 64, 16, (1019, 700, 301, 37),
      "bfloat16"),
+    # TinyLlama-1.1B's attention (32 q heads over 4 kv heads, n_rep 8), as
+    # the checkpoint daemon runs it: a decode step (n_rep·L = 8: the decode
+    # route) and a 64-token chunk, rows up to its 2048-token context
+    ("tinyllama_decode_b4_p16_bf16", 4, 1, 32, 4, 64, 16,
+     (2000, 1400, 700, 37), "bfloat16"),
+    ("tinyllama_chunk_b4_L64_p16_bf16", 4, 64, 32, 4, 64, 16,
+     (1920, 1024, 100, 0), "bfloat16"),
+    ("tinyllama_decode_b4_p16_f32", 4, 1, 32, 4, 64, 16,
+     (2000, 1400, 700, 37), "float32"),
 ]
 # B2 against the plain paged read. float32: summation order only (fp32
 # products on both sides). bfloat16: the plain version rounds the scores
@@ -716,6 +756,9 @@ def phase_paged_kernel() -> tuple[dict, dict]:
         "chunk_case": {k: chunk[k] for k in keys},
         "verify_cases": [{k: by_name[n][k] for k in keys} for n in (
             "verify_b4_L4_p16_bf16", "verify_gqa_L4_p16_bf16")],
+        "tinyllama_cases": [{k: by_name[n][k] for k in keys} for n in (
+            "tinyllama_decode_b4_p16_bf16",
+            "tinyllama_chunk_b4_L64_p16_bf16")],
     }
     return {"phase": "kernel_paged", "ok": True, "cases": cases}, summary
 
@@ -820,6 +863,40 @@ def _host_reads(prof) -> int:
                if e.key == "aten::_local_scalar_dense")
 
 
+def _profiled(srv, fn) -> dict:
+    """One call of ``fn`` under torch.profiler: wall and device busy
+    time, idle share, launches, host reads, verify rounds, the flash
+    (B1) and paged (B2) kernels' time and the largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    srv.reset_spec_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = _device_events(prof)
+    busy = sum(ms for _, ms, _ in events)
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy,
+        "device_idle_share": 1.0 - busy / wall_ms if busy else None,
+        "flash_fwd_ms": sum(ms for k, ms, _ in events if "flash_fwd" in k),
+        "paged_attn_ms": sum(ms for k, ms, _ in events
+                             if "paged_attn" in k),
+        "kernels": len(events),
+        "launches": sum(n for _, _, n in events),
+        "paged_attn_launches": sum(
+            n for k, _, n in events if "paged_attn" in k
+            and "combine" not in k),
+        "host_reads": _host_reads(prof),
+        "verify_rounds": srv.spec_stats_snapshot()["verify_rounds"],
+        "top": [[k[:80], ms, n] for k, ms, n in events[:6]],
+    }
+
+
 def phase_profile() -> dict:
     """Device time of one admission prefill ([4 rows, 1024 tokens]) and
     one 16-token decode segment over 4 rows at the serving default
@@ -831,7 +908,6 @@ def phase_profile() -> dict:
     shares."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from k8s_device_plugin_tpu_torch.models.serve_engine import LMServer
 
@@ -892,31 +968,7 @@ def phase_profile() -> dict:
                      ("paged_prefill_chunk", paged_chunk),
                      ("paged_decode_segment", paged_decode),
                      ("paged_spec_segment", paged_spec)):
-        torch.cuda.synchronize()
-        srv.reset_spec_stats()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = _device_events(prof)
-        busy = sum(ms for _, ms, _ in events)
-        flash = sum(ms for k, ms, _ in events if "flash_fwd" in k)
-        paged = sum(ms for k, ms, _ in events if "paged_attn" in k)
-        res[name] = {
-            "wall_ms": wall_ms, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / wall_ms if busy else None,
-            "flash_fwd_ms": flash, "paged_attn_ms": paged,
-            "kernels": len(events),
-            "launches": sum(n for _, _, n in events),
-            "paged_attn_launches": sum(
-                n for k, _, n in events if "paged_attn" in k
-                and "combine" not in k),
-            "host_reads": _host_reads(prof),
-            "verify_rounds": srv.spec_stats_snapshot()["verify_rounds"],
-            "top": [[k[:80], ms, n] for k, ms, n in events[:6]],
-        }
+        res[name] = _profiled(srv, fn)
     spec, plain = res["paged_spec_segment"], res["paged_decode_segment"]
     rounds = spec["verify_rounds"]
     want = rounds * (SPEC_K * SPEC_DRAFT_LAYERS + srv.config.num_layers)
@@ -968,7 +1020,59 @@ def _metric_sum(text: str, family: str) -> float:
 
 
 SERVE_PROMPT_LENS = (40, 300, 620, 900, 150)
+SERVE_PROMPTS = tuple(("the quick brown fox jumps over the lazy dog " * 30)[:n]
+                      for n in SERVE_PROMPT_LENS)
 SERVE_MAX_TOKENS = 48
+
+
+def _serve_traffic(port: int, what: str):
+    """SERVE_PROMPTS at once, SERVE_MAX_TOKENS each: the first streamed,
+    the others with ``"logprobs": 1``, the last sent 0.3 s after the
+    others (a late join while they decode). Returns (completion tokens,
+    TTFTs, decode tokens/s of each, wall s)."""
+    results = [None] * len(SERVE_PROMPTS)
+
+    def one(i):
+        body = {"prompt": SERVE_PROMPTS[i], "max_tokens": SERVE_MAX_TOKENS,
+                "logprobs": 1}
+        if i == 0:
+            body = {"prompt": SERVE_PROMPTS[i],
+                    "max_tokens": SERVE_MAX_TOKENS, "stream": True}
+        if i == len(SERVE_PROMPTS) - 1:
+            time.sleep(0.3)  # a late join while the others decode
+        results[i] = _post(port, body)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(SERVE_PROMPTS))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    ttfts, rates, completions = [], [], []
+    for i, res in enumerate(results):
+        if res is None or res[0] != 200:
+            raise AssertionError(f"{what}: request {i} failed: {res}")
+        status, raw, e2e = res
+        if i == 0:
+            frames = [ln[6:] for ln in raw.decode().splitlines()
+                      if ln.startswith("data: ")]
+            if not frames or frames[-1] != "[DONE]":
+                raise AssertionError(f"{what}: stream lacks [DONE]")
+            doc = json.loads(frames[-2])
+        else:
+            doc = json.loads(raw)
+            lps = doc["choices"][0]["logprobs"]["token_logprobs"]
+            if not lps or not all(v <= 0.0 and v == v for v in lps):
+                raise AssertionError(f"{what}: bad logprobs {lps[:4]}")
+        n_out = doc["usage"]["completion_tokens"]
+        if n_out < 1:
+            raise AssertionError(f"{what}: request {i} decoded nothing")
+        completions.append(n_out)
+        ttfts.append(doc["ttft_seconds"])
+        rates.append((n_out - 1) / max(e2e - doc["ttft_seconds"], 1e-9))
+    return completions, ttfts, rates, wall
 
 
 def phase_serve(counters) -> dict:
@@ -981,28 +1085,7 @@ def phase_serve(counters) -> dict:
         prefills0 = _metric_sum(before, "tpu_serve_prefill_bucket_total")
         for c in counters:
             c.launches = 0
-        letters = "the quick brown fox jumps over the lazy dog "
-        prompts = [(letters * 30)[:n] for n in SERVE_PROMPT_LENS]
-        results = [None] * len(prompts)
-
-        def one(i):
-            body = {"prompt": prompts[i], "max_tokens": SERVE_MAX_TOKENS,
-                    "logprobs": 1}
-            if i == 0:
-                body = {"prompt": prompts[i],
-                        "max_tokens": SERVE_MAX_TOKENS, "stream": True}
-            if i == len(prompts) - 1:
-                time.sleep(0.3)  # a late join while the others decode
-            results[i] = _post(port, body)
-
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=one, args=(i,))
-                   for i in range(len(prompts))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        wall = time.perf_counter() - t0
+        completions, ttfts, rates, wall = _serve_traffic(port, "serve")
         launches = {c.name: c.launches for c in counters}
         _, after = _get(port, "/metrics")
         prefills = _metric_sum(after, "tpu_serve_prefill_bucket_total") \
@@ -1017,34 +1100,14 @@ def phase_serve(counters) -> dict:
                     "tpu_serve_phase_seconds"):
             if fam not in after:
                 raise AssertionError(f"serve: /metrics lacks {fam}")
-        ttfts, rates, completions = [], [], []
-        for i, res in enumerate(results):
-            if res is None or res[0] != 200:
-                raise AssertionError(f"serve: request {i} failed: {res}")
-            status, raw, e2e = res
-            if i == 0:
-                frames = [ln[6:] for ln in raw.decode().splitlines()
-                          if ln.startswith("data: ")]
-                if not frames or frames[-1] != "[DONE]":
-                    raise AssertionError("serve: stream lacks [DONE]")
-                doc = json.loads(frames[-2])
-            else:
-                doc = json.loads(raw)
-                lps = doc["choices"][0]["logprobs"]["token_logprobs"]
-                if not lps or not all(v <= 0.0 and v == v for v in lps):
-                    raise AssertionError(f"serve: bad logprobs {lps[:4]}")
-            n_out = doc["usage"]["completion_tokens"]
-            if n_out < 1:
-                raise AssertionError(f"serve: request {i} decoded nothing")
-            completions.append(n_out)
-            ttfts.append(doc["ttft_seconds"])
-            rates.append((n_out - 1) / max(e2e - doc["ttft_seconds"], 1e-9))
         n_layers = batcher.server.config.num_layers
         flash = launches["flash_fwd"]
         if prefills < 1 or flash < n_layers * prefills:
             raise AssertionError(
                 f"serve: flash_fwd launched {flash} times for "
                 f"{prefills} admission prefills of {n_layers} layers")
+        # the yardstick of serve_static's bf16 agreement
+        tokens = _inproc_tokens(batcher, SERVE_PROMPTS, logprobs=True)
     return {
         "phase": "serve", "ok": True, "startup_s": startup_s,
         "prompt_lens": list(SERVE_PROMPT_LENS),
@@ -1052,7 +1115,7 @@ def phase_serve(counters) -> dict:
         "wall_s": wall, "ttft_s": ttfts, "decode_tokens_per_s": rates,
         "aggregate_tokens_per_s": sum(completions) / wall,
         "admission_prefills": prefills, "launches": launches,
-        "drained": True,
+        "drained": True, "tokens": tokens,
     }
 
 
@@ -1245,10 +1308,10 @@ def phase_serve_paged(counters) -> dict:
     }
 
 
-def _inproc_tokens(batcher, **kw):
-    """The continuation token ids of PAGED_PROMPTS submitted at once to
+def _inproc_tokens(batcher, prompts=PAGED_PROMPTS, **kw):
+    """The continuation token ids of ``prompts`` submitted at once to
     ``batcher`` in-process, SERVE_MAX_TOKENS each."""
-    ids = [batcher.server.encode_prompt(p) for p in PAGED_PROMPTS]
+    ids = [batcher.server.encode_prompt(p) for p in prompts]
     reqs = [batcher.submit_async(t, SERVE_MAX_TOKENS, **kw) for t in ids]
     return [batcher.wait(r, timeout=600)[0][len(t):]
             for r, t in zip(reqs, ids)]
@@ -1736,6 +1799,375 @@ def phase_serve_handoff(counters, paged_tokens) -> dict:
     }
 
 
+# The static batcher's daemon: --batching static, the reference's
+# defaults for the window, a warmup at the traffic's 48 tokens.
+STATIC_ARGV = ["--batching", "static", "--max-batch", "4",
+               "--batch-window-ms", "8", "--warmup-tokens",
+               str(SERVE_MAX_TOKENS)]
+STATIC_LP_TOL = 1e-4
+
+
+def _static_warmup_prefills(srv, max_batch: int, decode_tokens: int) -> int:
+    """Prefill calls of LMServer.warmup (the reference's count): row
+    buckets x length buckets, plus a greedy and a sampled complete_batch
+    a row bucket when the budget is >= 1 (and complete_batch_spec with a
+    draft)."""
+    rows, row_buckets = 1, 1
+    while rows < max_batch:
+        rows *= 2
+        row_buckets += 1
+    lens, lb = [], srv._prefill_bucket(1)
+    while lb not in lens:
+        lens.append(lb)
+        lb = srv._bucket(lb + 1, 128, srv.config.max_seq_len)
+    batches = 0
+    if min(decode_tokens, srv.config.max_seq_len - 1) >= 1:
+        batches = 2 + (srv.spec_k is not None)
+    return row_buckets * (len(lens) + batches)
+
+
+def _static_tokens(srv, jobs, logprobs=False):
+    """(tokens, logprobs) of ``jobs`` submitted at once to a fresh static
+    Batcher over ``srv`` (4 rows, the daemon's 8 ms window), and the
+    sizes of the batches it ran, in order (its flight records)."""
+    from k8s_device_plugin_tpu_torch.models.serve_batch import Batcher
+
+    b = Batcher(srv, max_batch=4, window_ms=8.0)
+    try:
+        reqs = [b.submit_async(p, n, logprobs=logprobs) for p, n in jobs]
+        out = [(b.wait(r, timeout=600)[0], r.slot["logprobs"])
+               for r in reqs]
+    finally:
+        b.close()
+    return out, [r["rows"] for r in b.flight.snapshot()
+                 if r["kind"] == "static_batch"]
+
+
+def _static_exactness() -> dict:
+    """float32 at full width (default_config, seed-0 weights): the static
+    Batcher's tokens for SERVE_PROMPTS equal complete_batch's over the
+    same batches and the rows ContinuousBatcher's; logprobs within
+    STATIC_LP_TOL of complete_batch's."""
+    import dataclasses
+
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models.serve_engine import (
+        LMServer,
+        default_config,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    srv = LMServer(config=dataclasses.replace(default_config(),
+                                              dtype=torch.float32),
+                   device="cuda")
+    jobs = [(srv.encode_prompt(p), SERVE_MAX_TOKENS) for p in SERVE_PROMPTS]
+    got, calls = _static_tokens(srv, jobs, logprobs=True)
+    want_toks, want_lps, start = [], [], 0
+    for n in calls:
+        group = jobs[start:start + n]
+        toks, lps, _ = srv.complete_batch(
+            [p for p, _ in group], [b for _, b in group],
+            return_logprobs=True)
+        want_toks += toks
+        want_lps += lps
+        start += n
+    rows = _batcher_tokens(srv, jobs, "rows")
+    toks = [t for t, _ in got]
+    if toks != want_toks or toks != rows:
+        raise AssertionError(
+            f"serve_static fp32: Batcher tokens differ from complete_batch "
+            f"at {_first_diff(toks, want_toks)}, from the rows batcher at "
+            f"{_first_diff(toks, rows)}")
+    err = max(abs(a - b) for (_, g), w in zip(got, want_lps)
+              for a, b in zip(g, w))
+    if err > STATIC_LP_TOL or [len(g) for _, g in got] != [
+            len(t) - len(p) for t, (p, _) in zip(toks, jobs)]:
+        raise AssertionError(f"serve_static fp32: logprobs differ by {err}")
+    del srv
+    torch.cuda.empty_cache()
+    return {"prompt_lens": list(SERVE_PROMPT_LENS),
+            "budget": SERVE_MAX_TOKENS, "batches": calls,
+            "identical_tokens": True, "rows_batcher_identical": True,
+            "max_logprob_err": err, "lp_tol": STATIC_LP_TOL}
+
+
+def _static_daemon(argv, what, counters, traffic, prompts):
+    """A --batching static daemon: B1's launches during its warmup
+    (by the reference's formula) and during ``traffic(port)`` (one
+    prefill a group: layers x groups), B2 never, and no program built
+    for the first time during the traffic; then the in-process tokens of
+    ``prompts`` (with logprobs). Returns what ``traffic`` returns and
+    those counts."""
+    for c in counters:
+        c.launches = 0
+    with _daemon(argv, what) as (httpd, batcher, startup_s):
+        port = httpd.server_address[1]
+        srv = batcher.server
+        warm = {c.name: c.launches for c in counters}
+        layers = srv.config.num_layers
+        prefills = _static_warmup_prefills(srv, batcher.max_batch,
+                                           SERVE_MAX_TOKENS)
+        if warm["flash_fwd"] != layers * prefills or warm["paged_attn"]:
+            raise AssertionError(
+                f"{what}: warmup launches {warm}; want flash_fwd = "
+                f"{layers} layers x {prefills} prefills")
+        _, before = _get(port, "/metrics")
+        for c in counters:
+            c.launches = 0
+        out = traffic(port)
+        launches = {c.name: c.launches for c in counters}
+        _, after = _get(port, "/metrics")
+        delta = _deltas(before, after)
+        groups = delta("tpu_serve_ttft_seconds_count", 'path="static"')
+        compiles = delta("tpu_serve_jit_compiles_total")
+        code, health = _get(port, "/healthz")
+        if code != 200 or json.loads(health).get("status") != "ok":
+            raise AssertionError(f"{what}: /healthz {code} {health}")
+        if groups < 1 or launches["flash_fwd"] != layers * groups \
+                or launches["paged_attn"]:
+            raise AssertionError(
+                f"{what}: launches {launches} for {groups} static groups; "
+                f"want flash_fwd = {layers} x {groups}, paged_attn = 0")
+        if compiles != 0:
+            raise AssertionError(f"{what}: {compiles} programs built during "
+                                 f"the traffic (warmup missed them)")
+        tokens = _inproc_tokens(batcher, prompts, logprobs=True)
+        # where a group's time goes: the traffic's first four prompts in
+        # one complete_batch (one prefill, one 47-step decode loop)
+        ids = [srv.encode_prompt(p) for p in prompts[:4]]
+        group = _profiled(srv, lambda: srv.complete_batch(
+            ids, [SERVE_MAX_TOKENS] * len(ids)))
+    return {**out, "startup_s": startup_s,
+            "aggregate_tokens_per_s": sum(out["completion_tokens"])
+            / out["wall_s"],
+            "warmup_prefills": prefills, "launches_warmup": warm,
+            "static_groups": groups, "new_programs_in_traffic": compiles,
+            "launches": launches, "profile_group": group,
+            "drained": True}, tokens
+
+
+def phase_serve_static(counters, serve_tokens) -> dict:
+    """The static batcher on the card: fp32 exactness at full width
+    (_static_exactness), then the daemon at the full-width default
+    config, bf16, with STATIC_ARGV over the serve phase's traffic:
+    startup (warmup included), TTFTs, aggregate tokens/s, the static
+    groups, B1 launched layers x prefills during warmup and layers x
+    groups during the traffic, no new program during the traffic, and
+    the share of its bf16 tokens the serve phase's agree with."""
+    fp32 = _static_exactness()
+
+    def traffic(port):
+        completions, ttfts, rates, wall = _serve_traffic(port,
+                                                         "serve_static")
+        return {"completion_tokens": completions, "ttft_s": ttfts,
+                "decode_tokens_per_s": rates, "wall_s": wall}
+
+    run, tokens = _static_daemon(STATIC_ARGV, "serve_static", counters,
+                                 traffic, SERVE_PROMPTS)
+    return {"phase": "serve_static", "ok": True, "fp32": fp32,
+            "argv": STATIC_ARGV, "prompt_lens": list(SERVE_PROMPT_LENS),
+            "max_tokens": SERVE_MAX_TOKENS, **run,
+            "bf16_agreement_with_serve": _agreement(tokens, serve_tokens)}
+
+
+# TinyLlama-1.1B-Chat-v1.0's published shape (its HF config.json as
+# tools/convert_hf.py's llama_to_lm maps it): the configuration the
+# repo's example converts (example/llm-serve/convert-job.yaml). Random
+# weights from seed 0; the byte tokenizer (no files).
+def tinyllama_config():
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models.transformer import LMConfig
+
+    return LMConfig(
+        vocab_size=32000, num_layers=22, num_heads=32, num_kv_heads=4,
+        embed_dim=2048, mlp_dim=5632, max_seq_len=2048, norm="rms",
+        norm_eps=1e-5, position="rope", rope_theta=10000.0,
+        mlp_act="swiglu", tie_embeddings=False, use_bias=False,
+        eos_token_id=2, bos_token_id=1, dtype=torch.bfloat16)
+
+
+def _importable(name: str) -> bool:
+    import importlib
+
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        return False
+    return True
+
+
+def _checkpoint_exactness(ckpt: str, state) -> dict:
+    """float32 at TinyLlama's full width: the server loaded from the
+    directory decodes the in-memory server's (same weights) greedy
+    tokens for PAGED_PROMPTS, logprobs bit-equal."""
+    import dataclasses
+
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models.serve_engine import LMServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(tinyllama_config(), dtype=torch.float32)
+    loaded = LMServer(config=cfg, checkpoint=ckpt, device="cuda")
+    prompts = [loaded.encode_prompt(p) for p in PAGED_PROMPTS]
+    budgets = [SERVE_MAX_TOKENS] * len(prompts)
+    got = loaded.complete_batch(prompts, budgets, return_logprobs=True)
+    del loaded
+    memory = LMServer(config=cfg, params=state, device="cuda")
+    want = memory.complete_batch(prompts, budgets, return_logprobs=True)
+    del memory
+    torch.cuda.empty_cache()
+    err = max(abs(a - b) for g, w in zip(got[1], want[1])
+              for a, b in zip(g, w))
+    if got[0] != want[0] or got[1] != want[1]:
+        raise AssertionError(
+            f"serve_checkpoint fp32: loaded differs from in-memory at "
+            f"{_first_diff(got[0], want[0])}, logprobs by {err}")
+    return {"prompt_lens": [len(p) for p in prompts],
+            "budget": SERVE_MAX_TOKENS,
+            "completion_tokens": [len(t) - len(p)
+                                  for t, p in zip(got[0], prompts)],
+            "identical_tokens": True, "logprobs_bit_equal": True,
+            "max_logprob_err": err}
+
+
+def _paged_profile(srv) -> dict:
+    """One 64-token paged prefill chunk and one 16-step paged decode
+    segment over 4 rows at ~1000 tokens (pages of 16), as the profile
+    phase runs them at the default width, on ``srv``."""
+    import numpy as np
+
+    rows, seg, page_tokens, width = 4, 16, 16, 64
+    pool = srv.make_paged_pool(rows * width + 1, page_tokens)
+    bt = np.arange(1, rows * width + 1, dtype=np.int64).reshape(rows, width)
+    ones, zeros = np.ones(rows, np.int64), np.zeros(rows, np.int64)
+    temp, gen = np.zeros(rows, np.float32), srv.generator(0)
+    tok = np.ones((rows, 1), np.int64)
+
+    def chunk():
+        return srv.paged_prefill_chunk(pool, np.ones((rows, 64), np.int64),
+                                       bt, 960 * ones, 63 * ones, gen, temp,
+                                       zeros)
+
+    def decode():
+        return srv.paged_decode_segment(pool, bt, tok, 1000 * ones, gen,
+                                        temp, zeros, seg)
+
+    chunk()
+    decode()
+    out = {"rows": rows, "segment": seg,
+           "paged_prefill_chunk": _profiled(srv, chunk),
+           "paged_decode_segment": _profiled(srv, decode)}
+    del pool
+    return out
+
+
+def phase_serve_checkpoint(counters) -> dict:
+    """Serving from a checkpoint directory at TinyLlama's full width:
+    random weights from seed 0 written by save_checkpoint (float32), the
+    write's and LMServer(checkpoint=)'s seconds, the loaded server equal
+    to the in-memory one in float32 (_checkpoint_exactness); then two
+    daemons from the one directory over serve_paged's traffic: the
+    default (paged KV: B2 launched layers x (chunks + decode steps), B1
+    never) and --batching static (B1 layers x groups, B2 never); tokens/s,
+    TTFTs and the bf16 agreement between the two. The directory is
+    removed afterwards."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models import params as tparams
+    from k8s_device_plugin_tpu_torch.models import transformer
+    from k8s_device_plugin_tpu_torch.models.serve_engine import LMServer
+
+    cfg = tinyllama_config()
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(HERE, "build"))
+    try:
+        with torch.device("cuda"):
+            model = transformer.DecoderLM(cfg, param_dtype=torch.float32)
+        state = transformer.init_params(model, seed=0).state_dict()
+        n_params = sum(v.numel() for v in state.values())
+        t0 = time.perf_counter()
+        path = tparams.save_checkpoint(ckpt, cfg, state)
+        write_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        srv = LMServer(checkpoint=ckpt, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if srv.config != cfg or srv.eos_id != 2:
+            raise AssertionError(f"serve_checkpoint: loaded config "
+                                 f"{srv.config}, eos {srv.eos_id}")
+        profile = _paged_profile(srv)
+        del srv, model
+        fp32 = _checkpoint_exactness(ckpt, state)
+        del state
+        torch.cuda.empty_cache()
+        layers = cfg.num_layers
+        for c in counters:
+            c.launches = 0
+        with _daemon(["--checkpoint", ckpt, "--max-batch", "4"],
+                     "serve_checkpoint") as (httpd, batcher, startup_s):
+            port = httpd.server_address[1]
+            if batcher.kv_mode != "paged" or batcher.server.config != cfg:
+                raise AssertionError("serve_checkpoint: the default daemon "
+                                     "is not paged at the checkpoint's "
+                                     "config")
+            _, before = _get(port, "/metrics")
+            for c in counters:
+                c.launches = 0
+            _, completions, ttfts, wall = _paged_traffic(
+                port, "serve_checkpoint", logprobs=True)
+            launches = {c.name: c.launches for c in counters}
+            _, after = _get(port, "/metrics")
+            delta = _deltas(before, after)
+            chunks = delta("tpu_serve_phase_seconds_count",
+                           'fn="paged_prefill"')
+            segments = delta("tpu_serve_phase_seconds_count",
+                             'fn="paged_segment"')
+            steps = segments * batcher.segment
+            want = layers * (chunks + steps)
+            if launches["paged_attn"] != want or launches["flash_fwd"]:
+                raise AssertionError(
+                    f"serve_checkpoint paged: launches {launches}; want "
+                    f"paged_attn = {layers} x ({chunks} chunks + {steps} "
+                    f"decode steps) = {want}, flash_fwd = 0")
+            paged_tokens = _inproc_tokens(batcher, logprobs=True)
+            paged = {"startup_s": startup_s,
+                     "completion_tokens": completions, "ttft_s": ttfts,
+                     "wall_s": wall,
+                     "aggregate_tokens_per_s": sum(completions) / wall,
+                     "prefill_chunks": chunks, "decode_segments": segments,
+                     "decode_steps": steps, "launches": launches,
+                     "drained": True}
+        def traffic(port):
+            _, completions, ttfts, wall = _paged_traffic(
+                port, "serve_checkpoint static", logprobs=True)
+            return {"completion_tokens": completions, "ttft_s": ttfts,
+                    "wall_s": wall}
+
+        static, static_tokens = _static_daemon(
+            ["--checkpoint", ckpt, *STATIC_ARGV], "serve_checkpoint static",
+            counters, traffic, PAGED_PROMPTS)
+        agreement = _agreement(static_tokens, paged_tokens)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return {
+        "phase": "serve_checkpoint", "ok": True,
+        "config": cfg.to_json_dict(), "params": n_params,
+        "checkpoint_bytes": nbytes, "write_s": write_s, "load_s": load_s,
+        "regex_importable": _importable("regex"),
+        "tokenizers_importable": _importable("tokenizers"),
+        "fp32": fp32, "paged": paged, "static": static,
+        "bf16_agreement_static_vs_paged": agreement, "profile": profile,
+        "removed": not os.path.exists(ckpt),
+    }
+
+
 def _stream_until_first(port: int, body: dict, first: threading.Event):
     """POST a streamed completion; sets ``first`` at its first data frame
     (its prompt's pages are then in the prefix index) and returns
@@ -1968,6 +2400,7 @@ def main() -> int:
     _jline(phase_model())
     _jline(phase_profile())
     serve = phase_serve([attention.FLASH_FWD])
+    serve_tokens = serve.pop("tokens")
     _jline(serve)
     summary["launches"] = serve["launches"]["flash_fwd"]
     paged_counters = [attention.FLASH_FWD, paged_attention.PAGED_ATTN,
@@ -1985,6 +2418,17 @@ def main() -> int:
         serve_spec["launches"]["paged_attn_combine"]
     serve_handoff = phase_serve_handoff(paged_counters, paged_tokens)
     _jline(serve_handoff)
+    serve_static = phase_serve_static(paged_counters, serve_tokens)
+    _jline(serve_static)
+    summary["launches_static"] = serve_static["launches"]["flash_fwd"]
+    summary["launches_static_warmup"] = \
+        serve_static["launches_warmup"]["flash_fwd"]
+    serve_ckpt = phase_serve_checkpoint(paged_counters)
+    _jline(serve_ckpt)
+    summary["launches_checkpoint"] = \
+        serve_ckpt["static"]["launches"]["flash_fwd"]
+    paged_summary["launches_checkpoint"] = \
+        serve_ckpt["paged"]["launches"]["paged_attn"]
     paged_summary["launches_handoff"] = \
         serve_handoff["launches"]["paged_attn"]
     paged_summary["launches_handoff_by_replica"] = {

@@ -20,9 +20,28 @@ Projection and embedding weights are cast to ``config.dtype`` for the
 serving layout (flax casts them on every call, to the same values) and
 kept in ``param_dtype`` (float32) for the training layout
 (``DecoderLM(config, param_dtype=torch.float32)``).
+
+The port's checkpoint directory (``save_checkpoint`` /
+``load_checkpoint``; ``LMServer(checkpoint=)`` and ``llm-serve
+--checkpoint`` read it):
+
+- ``lm_config.json``: ``LMConfig.to_json_dict``, the file the
+  reference's tools/convert_hf.py writes;
+- ``torch_params.pt``: a DecoderLM state_dict in the training layout
+  (float32, nothing rounded), loaded with ``weights_only=True``; a
+  serving model's ``load_state_dict`` casts the projections to
+  ``config.dtype``, to the values ``params_from_jax`` gives;
+- the tokenizer files when there are any (``vocab.json`` +
+  ``merges.txt``, or ``tokenizer.json``).
+
+Its own file name lets one directory hold the reference's orbax
+``params/`` beside it; tools/orbax_to_torch.py writes it from one.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 import torch
@@ -125,3 +144,50 @@ def params_to_jax(state_dict: dict, config: LMConfig) -> dict:
     if not config.tie_embeddings:
         tree["lm_head"] = dense("lm_head")
     return tree
+
+
+CONFIG_FILE = "lm_config.json"
+PARAMS_FILE = "torch_params.pt"
+TOKENIZER_FILES = ("vocab.json", "merges.txt", "tokenizer.json")
+
+
+def save_checkpoint(out_dir: str, config: LMConfig, state_dict: dict) -> str:
+    """Write ``config`` and ``state_dict`` (float32 on the CPU, whatever
+    their dtype and device) as the port's checkpoint directory; the
+    weights go under a temporary name first and are renamed, so a
+    reader never sees half a file. Returns the weights' path."""
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, CONFIG_FILE), "w") as f:
+        json.dump(config.to_json_dict(), f, indent=2)
+    path = os.path.join(out_dir, PARAMS_FILE)
+    tmp = path + ".tmp"
+    torch.save({k: v.detach().to("cpu", torch.float32).contiguous()
+                for k, v in state_dict.items()}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(ckpt_dir: str):
+    """(LMConfig from ``lm_config.json`` or None without one, the
+    float32 state_dict of ``torch_params.pt``). A directory without
+    the weights file raises ``ValueError``: an orbax ``params/`` is
+    converted by tools/orbax_to_torch.py, never replaced by random
+    weights."""
+    path = os.path.join(ckpt_dir, PARAMS_FILE)
+    if not os.path.exists(path):
+        found = ("an orbax params/ tree"
+                 if os.path.isdir(os.path.join(ckpt_dir, "params"))
+                 else "no weights")
+        raise ValueError(
+            f"checkpoint {ckpt_dir!r} holds {found}, not {PARAMS_FILE}: "
+            f"convert it with `python tools/orbax_to_torch.py "
+            f"--checkpoint {ckpt_dir}`"
+        )
+    config = None
+    cfg_path = os.path.join(ckpt_dir, CONFIG_FILE)
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            config = LMConfig.from_json_dict(json.load(f))
+    state = torch.load(path, map_location="cpu", weights_only=True,
+                       mmap=True)
+    return config, state

@@ -1,9 +1,16 @@
-"""Continuous batching for the llm-serve daemon, in PyTorch.
+"""Request batching engines for the llm-serve daemon, in PyTorch.
 
-The counterpart of ``k8s_device_plugin_tpu/models/serve_batch.py``: a
-fixed pool of rows decodes in fixed-length segments; prompts join and
-retire at segment boundaries, so a request waits at most one segment,
-not a neighbour's whole decode. Two KV layouts, as in the reference:
+The counterpart of ``k8s_device_plugin_tpu/models/serve_batch.py``, with
+its two scheduling designs over the serve_engine.LMServer core:
+
+- ``Batcher`` (static): requests coalescing in a short window share one
+  prefill + one full decode loop (``complete_batch``, prefilled through
+  the flash kernel B1), groups keyed by decode-loop bucket.
+- ``ContinuousBatcher``: a fixed pool of rows decodes in fixed-length
+  segments; prompts join and retire at segment boundaries, so a request
+  waits at most one segment, not a neighbour's whole decode.
+
+The continuous batcher's two KV layouts, as in the reference:
 
 - ``kv_mode="rows"``: contiguous per-row caches; every admission
   prefills through the flash kernel (serve_engine.prefill_rows).
@@ -21,8 +28,6 @@ The paged engine also serves the disaggregated roles (``role=``): a
 prefill replica exports each finished prompt's KV pages as a page-block
 bundle under a lease, a decode replica fetches bundles from its peer
 through a ``HandoffClient`` and imports the pages (models/handoff.py).
-
-Not ported yet (ROADMAP.md): the static ``Batcher`` (A5).
 
 The HTTP protocol surface lives in serve_http.py.
 """
@@ -464,6 +469,194 @@ class _BatcherBase:
             time.sleep(0.05)
         self.close()
         return drained
+
+
+class Batcher(_BatcherBase):
+    """Static batching: coalesce concurrent requests into complete_batch.
+
+    The first queued request opens a window (``window_ms``); whatever
+    else arrives before it closes — up to ``max_batch`` — shares one
+    prefill + one decode loop. Under load this multiplies aggregate
+    tokens/s by the batch size for one request's latency; an idle server
+    pays at most the window. ``max_batch=1`` degenerates to pass-through
+    (no window wait: the lone request IS the batch). The thread ends
+    once the batcher is closed and idle (the reference's waits on its
+    queue forever)."""
+
+    def __init__(self, server, max_batch: int = 4,
+                 window_ms: float = 8.0, seed: int = 0,
+                 max_pending: int = 0):
+        super().__init__(server, seed, max_pending=max_pending)
+        self.max_batch = max(1, max_batch)
+        self.window = max(0.0, window_ms) / 1000.0
+        threading.Thread(target=self._loop, daemon=True,
+                         name="llm-serve-batcher").start()
+
+    def _loop(self):
+        while True:
+            try:
+                batch = [self.q.get(timeout=0.2)]
+            except queue.Empty:
+                if self._closed_and_idle():
+                    return
+                continue
+            try:
+                if self.max_batch > 1:
+                    deadline = time.monotonic() + self.window
+                    while len(batch) < self.max_batch:
+                        timeout = deadline - time.monotonic()
+                        if timeout <= 0:
+                            break
+                        try:
+                            batch.append(self.q.get(timeout=timeout))
+                        except queue.Empty:
+                            break
+                # Deadline check at admission-to-decode: a request that
+                # expired while queued must not spend a whole decode
+                # loop's worth of device time finishing for nobody.
+                now = time.monotonic()
+                expired = [r for r in batch if r.expired(now)]
+                for req in expired:
+                    req.fail("deadline exceeded while queued",
+                             kind="deadline")
+                # Group by decode-loop bucket: co-batching a 16-token
+                # request with a 1024-token one would make the short
+                # request wait the long loop (every row decodes
+                # max(budgets) steps). Shortest bucket decodes first, so
+                # short requests don't queue behind a long group
+                # collected in the same window.
+                groups: dict = {}
+                for req in batch:
+                    if req.done.is_set():
+                        continue
+                    key = self.server._scan_bucket(max(1, req.budget - 1))
+                    groups.setdefault(key, []).append(req)
+                for _, group in sorted(groups.items()):
+                    call_start = time.perf_counter()
+                    lt0 = self.ledgers.now()
+                    for req in group:
+                        req.ledger.dequeue(lt0)
+                    try:
+                        # Chaos hook: a device call failing mid-batch.
+                        faults.inject("serve.decode_step", mode="static",
+                                      rows=len(group))
+                        sampled = any(r.temp > 0 or r.topk > 0
+                                      for r in group)
+                        # Greedy groups that don't need logprobs take
+                        # the speculative verify loop when a draft is
+                        # enabled (token-exact with the plain loop);
+                        # everything else keeps the plain path.
+                        spec = (self.server.spec_k is not None
+                                and not sampled
+                                and not any(r.want_lp for r in group))
+                        want_lp = any(r.want_lp for r in group)
+                        # One span per device dispatch (a whole batch
+                        # group), never per token.
+                        with obs_trace.span(  # tpulint: disable=TPU024
+                            "serve.engine.static_batch",
+                            parent=_rep_ctx(group), journal=False,
+                            rows=len(group),
+                        ):
+                            if spec:
+                                outs, ttft = \
+                                    self.server.complete_batch_spec(
+                                        [r.prompt for r in group],
+                                        [r.budget for r in group],
+                                    )
+                                out_lps = [[] for _ in group]
+                            elif want_lp:
+                                outs, out_lps, ttft = \
+                                    self.server.complete_batch(
+                                        [r.prompt for r in group],
+                                        [r.budget for r in group],
+                                        temps=[r.temp for r in group],
+                                        topks=[r.topk for r in group],
+                                        key=self._next_key() if sampled
+                                        else None,
+                                        return_logprobs=True,
+                                    )
+                            else:
+                                # no logprob consumer: skip the
+                                # per-token logprob transfer
+                                outs, ttft = self.server.complete_batch(
+                                    [r.prompt for r in group],
+                                    [r.budget for r in group],
+                                    temps=[r.temp for r in group],
+                                    topks=[r.topk for r in group],
+                                    key=self._next_key() if sampled
+                                    else None,
+                                )
+                                out_lps = [[] for _ in group]
+                        lt1 = self.ledgers.now()
+                        # The call's own ttft splits the interval into
+                        # prefill/decode service; clamped so a fake test
+                        # clock can't push prefill past the measured span.
+                        span_s = max(0.0, lt1 - lt0)
+                        pre_s = min(max(0.0, ttft), span_s)
+                        self.flight.record(
+                            "static_batch", rows=len(group),
+                            queue_depth=self.q.unfinished_tasks,
+                            wall_ms=round(span_s * 1e3, 3),
+                        )
+                        for req, out, lp in zip(group, outs, out_lps):
+                            req.ledger.prefill_chunk(lt0, lt0 + pre_s)
+                            req.ledger.first_token(lt0 + pre_s)
+                            req.ledger.decode_segment(
+                                lt0 + pre_s, lt1,
+                                tokens=len(out) - len(req.prompt),
+                            )
+                            # Stop-sequence truncation happens on the
+                            # host on the finished continuation (static
+                            # mode decodes to completion).
+                            cont = out[len(req.prompt):]
+                            req.asm.push(cont)
+                            req.slot["tokens"] = req.prompt + req.asm.tokens
+                            req.slot["text"] = req.asm.text()
+                            # stop truncation applies to logprobs too
+                            req.slot["logprobs"] = lp[:len(req.asm.tokens)]
+                            # "stop" = stop string or EOS. EOS shows as a
+                            # continuation shorter than the effective
+                            # budget, clamped by the same _batch_setup
+                            # windowing the decode used.
+                            b1, p1, _, _ = self.server._batch_setup(
+                                [req.prompt], [req.budget]
+                            )
+                            eff_budget = min(
+                                b1[0],
+                                self.server.config.max_seq_len - p1[0],
+                            )
+                            req.slot["finish_reason"] = (
+                                "stop" if req.asm.finished
+                                or len(cont) < eff_budget else "length"
+                            )
+                            # prefill-relative ttft + this request's
+                            # window/queue wait before the call started
+                            req.slot["ttft"] = (
+                                ttft + call_start - req.arrival
+                            )
+                            if req.stream_q is not None:
+                                # static mode has no segment boundaries:
+                                # the whole completion is one chunk.
+                                text = req.slot["text"]
+                                if text:
+                                    req.stream_q.put(text)
+                                req.stream_q.put(None)
+                            req.finish_ok()
+                    except Exception as e:  # surface to waiting requests
+                        log.exception("batch decode failed")
+                        for req in group:
+                            req.fail(str(e))
+            except Exception as e:
+                # Nothing in the loop may kill the lone decode thread:
+                # fail whatever was collected and keep serving.
+                log.exception("batcher loop error")
+                for req in batch:
+                    if not req.done.is_set():
+                        req.fail(str(e))
+            finally:
+                for _ in batch:
+                    self.q.task_done()
+                _g_queue_depth().set(self.q.unfinished_tasks)
 
 
 class ContinuousBatcher(_BatcherBase):

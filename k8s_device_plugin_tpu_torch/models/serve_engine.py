@@ -152,25 +152,41 @@ class LMServer:
         when there is none — pass ``device="cpu"`` to run on the CPU).
 
         Weights: ``params`` (a DecoderLM state_dict, e.g. from
-        models/params.py) or, without, random ones from a generator
-        seeded with 0 (the reference's PRNGKey(0)). ``checkpoint``
-        loading is not ported yet."""
+        models/params.py); else ``checkpoint``, the port's checkpoint
+        directory (models/params.py ``save_checkpoint``), whose
+        ``lm_config.json`` sets the config when ``config`` is None and
+        whose tokenizer files, when there are any, set the tokenizer; else
+        random ones from a generator seeded with 0 (the reference's
+        PRNGKey(0)). A directory holding only the reference's orbax
+        ``params/`` raises ``ValueError`` naming tools/orbax_to_torch.py."""
         from k8s_device_plugin_tpu_torch.models import transformer
+        from k8s_device_plugin_tpu_torch.models.params import (
+            load_checkpoint,
+        )
         from k8s_device_plugin_tpu_torch.models.tokenizer import (
+            ByteTokenizer,
             load_tokenizer,
         )
 
-        if checkpoint:
-            raise NotImplementedError(
-                "checkpoint loading (orbax restore) is not ported to the "
-                "PyTorch package yet: ROADMAP.md queue A, 'checkpoint "
-                "loading'; serve random weights or pass params="
-            )
         self.device = resolve_device(device)
+        if checkpoint:
+            ckpt_config, ckpt_params = load_checkpoint(checkpoint)
+            if config is None and ckpt_config is not None:
+                config = ckpt_config
+                log.info("config from %s", checkpoint)
+            if params is None:
+                params = ckpt_params
         self.config = config or default_config()
-        # No checkpoint, so no tokenizer files: the byte tokenizer.
-        self.tokenizer = load_tokenizer(None)
+        self.tokenizer = load_tokenizer(checkpoint)
         if self.tokenizer.vocab_size > self.config.vocab_size:
+            if not isinstance(self.tokenizer, ByteTokenizer):
+                # The checkpoint's own tokenizer not fitting its own
+                # model is a broken conversion: refuse rather than emit
+                # clamped ids.
+                raise ValueError(
+                    f"tokenizer vocab {self.tokenizer.vocab_size} exceeds "
+                    f"model vocab {self.config.vocab_size}"
+                )
             # Byte fallback on a sub-256-vocab demo config: high bytes
             # clamp in the embedding gather; fine for smoke use.
             log.warning(
@@ -186,7 +202,9 @@ class LMServer:
         log.info("serving on %s", self.device)
         model = transformer.DecoderLM(self.config)
         if params is not None:
-            model.load_state_dict(params)
+            # strict: every weight of the config, no stray one; the copy
+            # casts float32 checkpoint weights to the serving dtype
+            model.load_state_dict(params, strict=True)
             model = model.to(self.device)
         else:
             model = transformer.init_params(model.to(self.device), seed=0)
@@ -607,8 +625,64 @@ class LMServer:
         return self._bucket(p_len, 128, self.config.max_seq_len)
 
     def _scan_bucket(self, n: int) -> int:
-        """Decode-loop length bucket for an n-token continuation."""
+        """Decode-loop length bucket for an n-token continuation — also
+        the static Batcher's grouping key, so co-batched requests share
+        one decode-loop length."""
         return self._bucket(n, 8, self.config.max_seq_len)
+
+    def warmup(self, decode_tokens: int = 16, max_batch: int = 1):
+        """Run every (batch-rows, prompt-length) prefill bucket and each
+        row bucket's default decode loop once (the static batcher's
+        startup).
+
+        Without this, the first request to hit a new bucket pays its
+        first call — on the card, the flash kernel's nvcc build and
+        load at the very first prefill — inside its own TTFT; serving
+        should pay all of it at startup."""
+        budget = min(decode_tokens, self.config.max_seq_len - 1)
+        row_buckets, rows = [], 1
+        while True:
+            row_buckets.append(rows)
+            if rows >= max_batch:
+                break
+            rows *= 2
+        self.max_rows = row_buckets[-1]  # tpulint: shared-init (warmup precedes the engine thread)
+        len_buckets, lb = [], self._prefill_bucket(1)
+        while lb not in len_buckets:
+            len_buckets.append(lb)
+            lb = self._bucket(lb + 1, 128, self.config.max_seq_len)
+        for rows in row_buckets:
+            for lb in len_buckets:
+                self._prefill(
+                    torch.zeros((rows, lb), dtype=torch.long,
+                                device=self.device)
+                )
+            if budget >= 1:
+                # Through the real serving path, both decode-loop
+                # variants: the first temperature/top_k request must not
+                # pay the sampled loop's first call inside its TTFT.
+                self.complete_batch([[0]] * rows, [budget] * rows)
+                self.complete_batch(
+                    [[0]] * rows, [budget] * rows, temps=[1.0] * rows,
+                    key=self.generator(0),
+                )
+                if self.spec_k is not None:
+                    # the speculative verify loop, per (rows,
+                    # budget-bucket) too
+                    self.complete_batch_spec([[0]] * rows, [budget] * rows)
+        # Decode loops (and spec loops) only run for budgets >= 2: a
+        # 1-token continuation is fully served by the prefill +
+        # first-token sampler.
+        scans = 2 * len(row_buckets) if budget > 1 else 0
+        if self.spec_k is not None and budget > 1:
+            scans += len(row_buckets)
+        log.info(
+            "warmup: %d prefill compiles (rows %s x lens %s) + %d decode "
+            "scans", len(row_buckets) * len(len_buckets), row_buckets,
+            len_buckets, scans,
+        )
+        # warmup's dummy decodes must not pollute acceptance telemetry
+        self.reset_spec_stats()
 
     def _decode_steps(self, cache, tok, gen, temp, topk, steps: int,
                       sampled: bool = True):

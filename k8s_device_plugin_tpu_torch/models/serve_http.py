@@ -4,9 +4,11 @@ The counterpart of ``k8s_device_plugin_tpu/models/serve_http.py``: the
 vLLM-compatible ``POST /v1/completions`` handler (validation, SSE
 streaming, logprobs/echo/n), ``GET /healthz``, ``GET /metrics``, the
 debug listings, and graceful-shutdown main(), over the PyTorch engine
-(serve_engine.py) and the continuous batcher (serve_batch.py) in either
-KV layout: ``--kv-cache paged`` (the default, as in the reference) or
-``rows``.
+(serve_engine.py) and either batcher (serve_batch.py): the continuous
+one (the default) in either KV layout, ``--kv-cache paged`` (the
+default, as in the reference) or ``rows``; or ``--batching static``,
+window-coalesced batches decoded to completion after
+``LMServer.warmup``.
 
 Disaggregated serving, as in the reference: ``--role prefill`` serves
 ``POST /v1/handoff/prefill`` and ``/v1/handoff/ack`` (chunked prefill ->
@@ -16,9 +18,11 @@ page-block bundles, no client completions), ``--role decode
 
 The flag surface is the reference's, narrowed where the port still
 lacks a module (each narrowing is a gap in ROADMAP.md section C):
-``--batching continuous`` (the static batcher is A5); ``--checkpoint``
-raises. ``--device`` is new: the card by default, ``cpu`` on request
-(the counterpart of the reference's ``JAX_PLATFORMS``).
+no ``--compile-cache-dir`` (A4) and no ``--experts`` (A8).
+``--checkpoint`` reads the port's checkpoint directory
+(models/params.py), which tools/orbax_to_torch.py writes from the
+reference's. ``--device`` is new: the card by default, ``cpu`` on
+request (the counterpart of the reference's ``JAX_PLATFORMS``).
 """
 
 from __future__ import annotations
@@ -36,7 +40,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from k8s_device_plugin_tpu_torch.models import handoff as kv_handoff
 from k8s_device_plugin_tpu_torch.models.kv_cache import SLO_CLASSES
-from k8s_device_plugin_tpu_torch.models.serve_batch import ContinuousBatcher
+from k8s_device_plugin_tpu_torch.models.serve_batch import (
+    Batcher,
+    ContinuousBatcher,
+)
 from k8s_device_plugin_tpu_torch.models.serve_engine import (
     TOP_K_CAP,
     DeadlineError,
@@ -95,8 +102,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="llm-serve")
     p.add_argument("--port", type=int, default=8888)
     p.add_argument("--checkpoint", default=None,
-                   help="not ported yet: raises (ROADMAP.md, checkpoint "
-                        "loading); weights are random from seed 0")
+                   help="the port's checkpoint directory (lm_config.json "
+                        "+ torch_params.pt + tokenizer files; "
+                        "tools/orbax_to_torch.py writes it from a "
+                        "reference checkpoint); default: random weights "
+                        "from seed 0")
     p.add_argument("--tiny", action="store_true",
                    help="tiny config for smoke tests")
     p.add_argument("--device", default=None,
@@ -106,17 +116,24 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-warmup", action="store_true",
                    help="skip running every prefill/decode bucket once "
                         "at startup (first requests then pay it)")
-    p.add_argument("--batching", choices=("continuous",),
+    p.add_argument("--batching", choices=("continuous", "static"),
                    default="continuous",
                    help="continuous: fixed row pool, requests join/leave "
-                        "at segment boundaries (static batching is not "
-                        "ported yet: ROADMAP.md, A5)")
+                        "at segment boundaries; static: window-coalesced "
+                        "batches decoded to completion")
     p.add_argument("--max-batch", type=int, default=4,
-                   help="decode row pool width")
+                   help="decode row pool width (continuous) / request "
+                        "coalescing cap (static)")
     p.add_argument("--segment-tokens", type=int, default=16,
-                   help="tokens decoded between admission points; 0 = "
-                        "auto-tune at warmup from this device's measured "
-                        "dispatch overhead")
+                   help="continuous mode: tokens decoded between "
+                        "admission points; 0 = auto-tune at warmup from "
+                        "this device's measured dispatch overhead")
+    p.add_argument("--batch-window-ms", type=float, default=8.0,
+                   help="static mode: how long the first queued request "
+                        "waits for company before decoding")
+    p.add_argument("--warmup-tokens", type=int, default=16,
+                   help="static mode: decode-loop length run at startup; "
+                        "match your clients' typical max_tokens")
     p.add_argument("--seed", type=int, default=0,
                    help="server-level sampling generator seed")
     p.add_argument("--draft-layers", type=int, default=0,
@@ -593,31 +610,41 @@ def main(argv=None, on_ready=None) -> int:
                           device=args.device)
         if args.draft_layers:
             server.enable_draft(args.draft_layers, k=args.speculative_k)
-        handoff_client = None
-        if args.role == "decode":
-            # Outbound page-fetch client: per-transfer deadline, retry
-            # budget, and a circuit breaker per peer — the wire hop must
-            # degrade to local re-prefill, never hang the submit path.
-            handoff_client = kv_handoff.HandoffClient(
-                kv_handoff.HTTPTransport(args.handoff_peer),
-                peer=args.handoff_peer,
+        if args.batching == "continuous":
+            handoff_client = None
+            if args.role == "decode":
+                # Outbound page-fetch client: per-transfer deadline,
+                # retry budget, and a circuit breaker per peer — the
+                # wire hop must degrade to local re-prefill, never hang
+                # the submit path.
+                handoff_client = kv_handoff.HandoffClient(
+                    kv_handoff.HTTPTransport(args.handoff_peer),
+                    peer=args.handoff_peer,
+                )
+            batcher = ContinuousBatcher(
+                server, max_batch=args.max_batch,
+                segment_tokens=args.segment_tokens, seed=args.seed,
+                max_pending=args.max_pending, kv_mode=args.kv_cache,
+                page_tokens=args.kv_page_tokens,
+                pool_pages=args.kv_pool_pages,
+                prefill_chunk=args.prefill_chunk,
+                role=args.role,
+                handoff_client=handoff_client,
             )
-        batcher = ContinuousBatcher(
-            server, max_batch=args.max_batch,
-            segment_tokens=args.segment_tokens, seed=args.seed,
-            max_pending=args.max_pending, kv_mode=args.kv_cache,
-            page_tokens=args.kv_page_tokens,
-            pool_pages=args.kv_pool_pages,
-            prefill_chunk=args.prefill_chunk,
-            role=args.role,
-            handoff_client=handoff_client,
-        )
-        if not args.no_warmup:
-            batcher.warmup()
-        elif args.segment_tokens <= 0:
-            log.warning("--segment-tokens 0 (auto) needs warmup to "
-                        "measure dispatch cost; serving with "
-                        "segment=16")
+            if not args.no_warmup:
+                batcher.warmup()
+            elif args.segment_tokens <= 0:
+                log.warning("--segment-tokens 0 (auto) needs warmup to "
+                            "measure dispatch cost; serving with "
+                            "segment=16")
+        else:
+            if not args.no_warmup:
+                server.warmup(decode_tokens=args.warmup_tokens,
+                              max_batch=args.max_batch)
+            batcher = Batcher(server, max_batch=args.max_batch,
+                              window_ms=args.batch_window_ms,
+                              seed=args.seed,
+                              max_pending=args.max_pending)
 
     Handler = make_handler(server, batcher,
                            default_timeout_s=args.request_timeout,
@@ -641,7 +668,8 @@ def main(argv=None, on_ready=None) -> int:
 
     log_event("llm-serve", "serving", note=str(server.device))
     log.info("llm-serve listening on :%d (%s batching, %s KV, role %s, "
-             "%s)", httpd.server_address[1], args.batching, args.kv_cache,
+             "%s)", httpd.server_address[1], args.batching,
+             args.kv_cache if args.batching == "continuous" else "rows",
              args.role, server.device)
     if on_ready is not None:
         on_ready(httpd, batcher)

@@ -597,3 +597,95 @@ def test_paged_attention_kernel_replays_in_a_cuda_graph(cuda, L):
     assert torch.equal(out, want)
     plain = paged_attention.paged_attention_reference(q, kp, vp, bt, q_pos)
     assert (out.float() - plain.float()).abs().max().item() <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# the static batcher and checkpoint serving on the card
+# ---------------------------------------------------------------------------
+
+def test_static_batcher_on_card_matches_complete_batch(cuda):
+    """The static Batcher (one coalesced batch, prefilled through B1)
+    decodes complete_batch's tokens in float32."""
+    from k8s_device_plugin_tpu_torch.models.serve import Batcher
+
+    srv = LMServer(config=SMALL, device=cuda)
+    jobs = [([5, 17, 99], 7), ([7, 3, 42, 11], 6), ([1], 4), ([88, 2], 5)]
+    want, _ = srv.complete_batch([p for p, _ in jobs],
+                                 [n for _, n in jobs])
+    srv.warmup(decode_tokens=7, max_batch=4)
+    b = Batcher(srv, max_batch=4, window_ms=60_000.0)
+    before = attention.FLASH_FWD.launches
+    reqs = [b.submit_async(p, n) for p, n in jobs]
+    got = [b.wait(r, timeout=120)[0] for r in reqs]
+    assert got == want
+    # one group (all budgets share the 8-step bucket): one prefill
+    assert attention.FLASH_FWD.launches - before == SMALL.num_layers
+    assert b.drain(timeout=30)
+
+
+def test_checkpoint_on_card_equals_in_memory_model(cuda, tmp_path):
+    """A checkpoint saved from the card and served from the directory
+    decodes the in-memory model's tokens, logprobs bit-equal (float32,
+    GQA with 8 q heads a kv head, as TinyLlama's)."""
+    import dataclasses
+
+    from k8s_device_plugin_tpu_torch.models import params as tparams
+
+    cfg = transformer.LMConfig(
+        vocab_size=512, num_layers=2, num_heads=16, num_kv_heads=2,
+        embed_dim=1024, mlp_dim=512, max_seq_len=256, position="rope",
+        mlp_act="swiglu", norm_eps=1e-5, eos_token_id=-1,
+        dtype=torch.float32)
+    model = transformer.DecoderLM(cfg, param_dtype=torch.float32).to(cuda)
+    state = transformer.init_params(model, seed=7).state_dict()
+    tparams.save_checkpoint(str(tmp_path), cfg, state)
+    loaded = LMServer(checkpoint=str(tmp_path), device=cuda)
+    memory = LMServer(config=cfg, params=state, device=cuda)
+    assert loaded.config == cfg
+    prompts = [list(range(1, 200)), [5, 17, 99], [42] * 40]
+    budgets = [12, 20, 7]
+    a = loaded.complete_batch(prompts, budgets, return_logprobs=True)
+    b = memory.complete_batch(prompts, budgets, return_logprobs=True)
+    assert a[0] == b[0] and a[1] == b[1]
+    # bf16 serving of the same file: the cast is the serving map's
+    bf16 = LMServer(config=dataclasses.replace(cfg, dtype=torch.bfloat16),
+                    checkpoint=str(tmp_path), device=cuda)
+    want = tparams.params_from_jax(tparams.params_to_jax(state, cfg),
+                                   dataclasses.replace(
+                                       cfg, dtype=torch.bfloat16))
+    for k, v in bf16.model.state_dict().items():
+        assert torch.equal(v.cpu(), want[k]), k
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_kernel_at_n_rep_8(cuda, dtype, tol):
+    """B1 with 32 q heads over 4 kv heads (TinyLlama's attention)."""
+    q, k, v = _qkv((2, 32, 300, 64), 4, dtype, seed=8)
+    got_o, got_l = attention.flash_attention_with_lse(q, k, v, True)
+    want_o, want_l = attention.reference_attention_with_lse(q, k, v, True)
+    assert (got_o.float() - want_o.float()).abs().max().item() <= tol
+    assert (got_l - want_l).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("L", [1, 64])
+def test_paged_attention_kernel_at_n_rep_8(cuda, L, dtype, tol):
+    """B2 with 32 q heads over 4 kv heads: at L = 1 (n_rep·L = 8) the
+    decode route, at a 64-token chunk the chunk route in bf16."""
+    args = paged_inputs(4, L, 32, 4, 64, 16, [2000, 700, 37, -1], dtype,
+                        seed=L)
+    plan = paged_attention.paged_attn_plan(4, L, 32, 4, 64, 16,
+                                           args[3].shape[1], dtype)
+    if dtype == torch.bfloat16:
+        assert plan.route == ("decode" if L == 1 else "chunk")
+    got = paged_attention.paged_attention(*args)
+    want = paged_attention.paged_attention_reference(*args)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    if dtype == torch.bfloat16:
+        close = paged_attention.paged_attention_fp32(
+            *args, round_p=plan.route == "chunk")
+        assert paged_attention.row_rel_err(got, close) <= \
+            paged_attention.PAGED_BF16_ROW_TOL

@@ -111,7 +111,10 @@ def test_no_device_means_the_card_and_raises_here():
 
 
 def test_checkpoint_is_refused_with_roadmap_pointer():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A checkpoint directory without the port's weights is refused with
+    a pointer to the converter (tools/orbax_to_torch.py), never served
+    with random weights."""
+    with pytest.raises(ValueError, match="tools/orbax_to_torch.py"):
         LMServer(config=tt.LMConfig.tiny(), checkpoint="/nonexistent",
                  device="cpu")
 
