@@ -93,6 +93,30 @@ exits non-zero without a result:
   ``--batching static`` (B1 layers x groups, B2 never), tokens/s, TTFTs,
   the bf16 agreement between the two. The directory is removed
   afterwards.
+- ``compile_cache``: the persistent kernel cache (``--compile-cache-dir``,
+  models/compile_cache.py) across four daemon processes at the default
+  (paged KV, bf16, --max-batch 4) on one fresh directory under build/:
+  a cold start (nvcc builds each library it launches and writes it back:
+  cache misses = writes = nvcc runs = entries), a warm restart (no nvcc,
+  hits = entries, no miss or write, ``phase="load"`` dispatches, tokens
+  and logprobs identical to the cold run), a restart after truncating
+  one entry (quarantined as ``*.corrupt-<ts>``, counted corrupt, rebuilt
+  once, tokens identical) and a restart with ``compile_cache.read=error``
+  armed (every library rebuilt, tokens identical, a clean exit); each
+  run's startup seconds (spawn to /healthz 200) and TTFTs. Three of
+  serve_paged's prompts go one after another, so every run's batches
+  are the same.
+- ``serve_moe``: switch-MoE layers. float32 at the width ``--experts 8``
+  selects (``LMConfig(num_experts=8)``): greedy tokens of the rows and
+  paged ContinuousBatchers with the kernels equal those with plain
+  attention. Then the daemon with ``--experts 8`` at its default (paged
+  KV, bf16, --max-batch 4) over serve_paged's traffic: B2 launched
+  exactly layers x (prefill chunks + decode steps), B1 never, aggregate
+  tokens/s, the share of its bf16 tokens the plain-attention path agrees
+  with. Then three AdamW steps at the flagship width with 8 experts,
+  kernels against plain attention from the same weights and tokens:
+  finite losses within MOE_LOSS_RTOL, B1/B3/B4 each once per layer per
+  step.
 - ``kernel_bwd``: the backward kernels B3 (dQ) and B4 (dK/dV) through
   ``FlashAttention.backward`` against the plain backward on the same
   inputs, random output and lse cotangents, at the training shapes and
@@ -765,17 +789,20 @@ def phase_paged_kernel() -> tuple[dict, dict]:
 
 @contextlib.contextmanager
 def plain_attention():
-    """Route the model's attention through the plain PyTorch version
-    (the comparison side of the model phase)."""
+    """Route the model's attention through the plain PyTorch versions
+    (the comparison side of the model, serve_moe and train phases): B1's
+    flash attention and B2's paged read."""
     from k8s_device_plugin_tpu_torch.models import transformer
     from k8s_device_plugin_tpu_torch.ops import attention
+    from k8s_device_plugin_tpu_torch.ops import paged_attention as pa
 
-    kernel = transformer.flash_attention
+    kernels = transformer.flash_attention, transformer.paged_attention
     transformer.flash_attention = attention.reference_attention
+    transformer.paged_attention = pa.paged_attention_reference
     try:
         yield
     finally:
-        transformer.flash_attention = kernel
+        transformer.flash_attention, transformer.paged_attention = kernels
 
 
 MODEL_PROMPT_LENS = (100, 300, 700, 900)
@@ -2168,6 +2195,352 @@ def phase_serve_checkpoint(counters) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# compile_cache: the persistent kernel cache across daemon restarts
+# ---------------------------------------------------------------------------
+
+# Single requests one after another (the batch composition is then the
+# same in every run, so bf16 tokens can be compared exactly): three of
+# serve_paged's prompts, 24 tokens each, with logprobs.
+CACHE_PROMPTS = PAGED_PROMPTS[:3]
+CACHE_MAX_TOKENS = 24
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _process_daemon(cache_dir: str, what: str, env_extra=None):
+    """``python -m k8s_device_plugin_tpu_torch.models.serve`` in a process
+    of its own at its default (paged KV, bf16, --max-batch 4) with
+    ``--compile-cache-dir cache_dir``; serves CACHE_PROMPTS one after
+    another, reads /metrics, then SIGTERMs it and fails unless it exits
+    0. Returns (seconds from spawn to /healthz 200, each request's
+    (text, token strings, token logprobs), TTFTs, /metrics)."""
+    import signal
+
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=HERE, **(env_extra or {}))
+    log_path = os.path.join(HERE, "build", f"compile_cache_{what}.log")
+    with open(log_path, "w") as log_f:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "k8s_device_plugin_tpu_torch.models.serve",
+             "--port", str(port), "--max-batch", "4",
+             "--compile-cache-dir", cache_dir],
+            cwd=HERE, env=env, stdout=log_f, stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"compile_cache {what}: daemon "
+                                         f"exited {proc.returncode}")
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError(f"compile_cache {what}: not ready "
+                                         f"in 300 s")
+                try:
+                    if _get(port, "/healthz")[0] == 200:
+                        break
+                except (urllib.error.URLError, ConnectionError, OSError):
+                    time.sleep(0.2)
+            startup_s = time.perf_counter() - t0
+            answers, ttfts = [], []
+            for prompt in CACHE_PROMPTS:
+                status, raw, _ = _post(port, {
+                    "prompt": prompt, "max_tokens": CACHE_MAX_TOKENS,
+                    "logprobs": 1})
+                doc = json.loads(raw)
+                choice = doc["choices"][0]
+                answers.append((choice["text"],
+                                choice["logprobs"]["tokens"],
+                                choice["logprobs"]["token_logprobs"]))
+                ttfts.append(doc["ttft_seconds"])
+            metrics = _get(port, "/metrics")[1]
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        except BaseException:
+            proc.kill()
+            proc.wait(timeout=60)
+            with open(log_path) as f:
+                tail = f.read()[-3000:]
+            print(f"compile_cache {what} log tail:\n{tail}", file=sys.stderr)
+            raise
+    if rc != 0:
+        raise AssertionError(f"compile_cache {what}: daemon exited {rc} "
+                             f"after SIGTERM (log {log_path})")
+    return startup_s, answers, ttfts, metrics
+
+
+def _cache_counts(metrics: str) -> dict:
+    """The persistent cache's families, the nvcc runs and the load-phase
+    dispatches of one daemon's /metrics."""
+    out = {name: _metric_sum(metrics, f"tpu_serve_compile_cache_{name}_total")
+           for name in ("hits", "misses", "writes", "evictions", "corrupt")}
+    out["nvcc_runs"] = _metric_sum(metrics, "tpu_serve_kernel_builds_total")
+    out["load_dispatches"] = _metric_labeled(
+        metrics, "tpu_serve_phase_seconds_count", 'phase="load"')
+    out["compile_dispatches"] = _metric_labeled(
+        metrics, "tpu_serve_phase_seconds_count", 'phase="compile"')
+    return out
+
+
+def phase_compile_cache() -> dict:
+    """The persistent kernel cache (--compile-cache-dir) across four
+    daemon processes on one fresh directory: a cold start (nvcc builds
+    every library it launches and writes it back: misses = writes = nvcc
+    runs), a warm restart (no nvcc, every library opened from the cache,
+    phase="load" dispatches, tokens identical to the cold run), a
+    restart after truncating one entry (quarantined, counted corrupt,
+    rebuilt once, tokens identical) and a restart with
+    compile_cache.read=error armed (every read fails over to nvcc,
+    tokens identical, no crash). Startup seconds and first TTFTs of
+    each."""
+    import glob
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    cache_dir = tempfile.mkdtemp(prefix="kcache_",
+                                 dir=os.path.join(HERE, "build"))
+    runs = {}
+    try:
+        def run(what, env_extra=None):
+            startup_s, answers, ttfts, metrics = _process_daemon(
+                cache_dir, what, env_extra)
+            runs[what] = {"startup_s": startup_s, "first_ttft_s": ttfts[0],
+                          "ttft_s": ttfts, **_cache_counts(metrics)}
+            return answers
+
+        def entries():
+            return sorted(glob.glob(os.path.join(cache_dir, "*.culib")))
+
+        cold = run("cold")
+        c = runs["cold"]
+        libs = entries()
+        if not (c["nvcc_runs"] >= 1 and c["misses"] == c["writes"]
+                == c["nvcc_runs"] == len(libs) and c["hits"] == 0):
+            raise AssertionError(f"compile_cache cold: {c}, entries {libs}")
+        if c["load_dispatches"] != 0:
+            raise AssertionError(f"compile_cache cold: load dispatches {c}")
+        warm = run("warm")
+        w = runs["warm"]
+        if not (w["nvcc_runs"] == 0 and w["hits"] == len(libs)
+                and w["misses"] == 0 and w["writes"] == 0
+                and w["load_dispatches"] >= 1):
+            raise AssertionError(f"compile_cache warm: {w}")
+        if warm != cold:
+            raise AssertionError("compile_cache warm: tokens differ from "
+                                 "the cold run")
+        # a torn entry: quarantined, rebuilt once, served the same
+        with open(libs[0], "rb") as f:
+            head = f.read(4096)
+        with open(libs[0], "wb") as f:
+            f.write(head)
+        corrupt = run("corrupt")
+        k = runs["corrupt"]
+        quarantined = glob.glob(os.path.join(cache_dir, "*.corrupt-*"))
+        if not (k["corrupt"] == 1 and k["nvcc_runs"] == 1
+                and k["writes"] == 1 and len(quarantined) == 1
+                and k["hits"] == len(libs) - 1):
+            raise AssertionError(f"compile_cache corrupt: {k}, "
+                                 f"quarantined {quarantined}")
+        if corrupt != cold:
+            raise AssertionError("compile_cache corrupt: tokens differ")
+        faulted = run("read_fault",
+                      {"TPU_FAULT_PLAN": "compile_cache.read=error"})
+        r = runs["read_fault"]
+        if not (r["hits"] == 0 and r["nvcc_runs"] == len(libs)
+                and r["misses"] == len(libs)):
+            raise AssertionError(f"compile_cache read_fault: {r}")
+        if faulted != cold:
+            raise AssertionError("compile_cache read_fault: tokens differ")
+        sizes = {os.path.basename(p): os.path.getsize(p) for p in entries()}
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    return {"phase": "compile_cache", "ok": True,
+            "prompts": len(CACHE_PROMPTS), "max_tokens": CACHE_MAX_TOKENS,
+            "entries": sizes, "runs": runs,
+            "tokens_identical": True, "quarantined": 1}
+
+
+# ---------------------------------------------------------------------------
+# serve_moe: switch-MoE layers (--experts 8) on the card
+# ---------------------------------------------------------------------------
+
+MOE_EXPERTS = 8
+MOE_TRAIN_STEPS = 3
+MOE_TRAIN_BATCH = 8
+# bf16 losses of the kernel and plain-attention steps from the same
+# weights and tokens: relative difference (the kernels keep P and dS in
+# bf16 where the plain backward keeps fp32, and steps 2-3 follow updates
+# that differ by that rounding).
+MOE_LOSS_RTOL = 2e-2
+
+
+def _moe_exactness() -> dict:
+    """float32 at the width --experts 8 selects (LMConfig(num_experts=8)):
+    greedy tokens of the rows and paged ContinuousBatchers with the
+    kernels (B1 prefills / B2 reads) equal those with plain attention."""
+    import dataclasses
+
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models.serve_engine import LMServer
+    from k8s_device_plugin_tpu_torch.models.transformer import LMConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(LMConfig(num_experts=MOE_EXPERTS),
+                              dtype=torch.float32)
+    srv = LMServer(config=cfg, device="cuda")
+    rng = torch.Generator().manual_seed(4)
+    jobs = [(torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist(),
+             b) for n, b in zip(SPEC_PROMPT_LENS, SPEC_BUDGETS)]
+    out = {}
+    for kv in ("rows", "paged"):
+        got = _batcher_tokens(srv, jobs, kv)
+        with plain_attention():
+            want = _batcher_tokens(srv, jobs, kv)
+        if got != want:
+            raise AssertionError(f"serve_moe fp32 {kv}: kernel and plain "
+                                 f"tokens differ at {_first_diff(got, want)}")
+        out[kv] = {"identical": True, "jobs": len(jobs)}
+    del srv
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_train(counters) -> dict:
+    """MOE_TRAIN_STEPS AdamW steps at the flagship width with
+    num_experts=8 from seed-0 weights and seeded tokens, with the kernels
+    and then with plain attention from the same start: finite losses
+    within MOE_LOSS_RTOL, B1, B3 and B4 each launched once per layer per
+    step on the kernel side. The batch halves only if the card runs out
+    of memory (recorded)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models import transformer
+
+    cfg = dataclasses.replace(transformer.flagship_config(),
+                              num_experts=MOE_EXPERTS)
+    batch = MOE_TRAIN_BATCH
+    while True:
+        try:
+            step, init = transformer.make_train_step(cfg, "cuda")
+            gen = torch.Generator().manual_seed(5)
+            toks = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len),
+                                 generator=gen).cuda()
+
+            def steps(plain):
+                """Losses and each step's seconds (host clock to the
+                loss's read, which waits for the step)."""
+                model, opt = init(0)
+                losses, secs = [], []
+                with contextlib.ExitStack() as stack:
+                    if plain:
+                        stack.enter_context(plain_attention())
+                    torch.cuda.synchronize()
+                    for _ in range(MOE_TRAIN_STEPS):
+                        t0 = time.perf_counter()
+                        losses.append(step(model, opt, toks).item())
+                        secs.append(time.perf_counter() - t0)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                del model, opt
+                torch.cuda.empty_cache()
+                return losses, secs, peak
+
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters:
+                c.launches = 0
+            got, step_s, peak = steps(False)
+            launches = _launches_per_step(counters, MOE_TRAIN_STEPS,
+                                          cfg.num_layers, "moe steps")
+            want, plain_step_s, _ = steps(True)
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            if batch == 1:
+                raise
+            batch //= 2
+    flops = transformer.train_flops_per_step(cfg, batch)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if not all(math.isfinite(x) for x in got + want) or rel > MOE_LOSS_RTOL:
+        raise AssertionError(f"serve_moe train: losses {got} vs plain "
+                             f"{want} (rel {rel:.3g}, tol {MOE_LOSS_RTOL})")
+    return {"config": f"flagship_config(), num_experts={MOE_EXPERTS}",
+            "batch": batch, "steps": MOE_TRAIN_STEPS, "losses": got,
+            "plain_losses": want, "max_rel_diff": rel, "rtol": MOE_LOSS_RTOL,
+            "step_s": step_s, "plain_step_s": plain_step_s,
+            "mfu_last_step": (flops / step_s[-1]
+                              / transformer.H100_BF16_PEAK_FLOPS),
+            "peak_gib": peak, "launches": launches, "flops_per_step": flops}
+
+
+def phase_serve_moe(counters) -> dict:
+    """Switch-MoE layers on one card. float32 exactness at LMConfig(
+    num_experts=8)'s width (_moe_exactness); then the daemon with
+    --experts 8 at its default (paged KV, bf16, --max-batch 4) over
+    serve_paged's traffic: B2 launched exactly layers x (prefill chunks
+    + decode steps), B1 never, aggregate tokens/s, and the share of its
+    bf16 tokens the plain-attention path agrees with; then
+    MOE_TRAIN_STEPS training steps at the flagship width with 8 experts
+    (_moe_train)."""
+    fp32 = _moe_exactness()
+    argv = ["--experts", str(MOE_EXPERTS), "--max-batch", "4"]
+    with _daemon(argv, "serve_moe") as (httpd, batcher, startup_s):
+        port = httpd.server_address[1]
+        cfg = batcher.server.config
+        if batcher.kv_mode != "paged" or cfg.num_experts != MOE_EXPERTS:
+            raise AssertionError(f"serve_moe: {batcher.kv_mode} KV, "
+                                 f"{cfg.num_experts} experts")
+        _, before = _get(port, "/metrics")
+        for c in counters:
+            c.launches = 0
+        _, completions, ttfts, wall = _paged_traffic(port, "serve_moe",
+                                                     logprobs=True)
+        launches = {c.name: c.launches for c in counters}
+        _, after = _get(port, "/metrics")
+        delta = _deltas(before, after)
+        chunks = delta("tpu_serve_phase_seconds_count", 'fn="paged_prefill"')
+        segments = delta("tpu_serve_phase_seconds_count",
+                         'fn="paged_segment"')
+        code, health = _get(port, "/healthz")
+        if code != 200 or json.loads(health).get("status") != "ok":
+            raise AssertionError(f"serve_moe: /healthz {code} {health}")
+        want = cfg.num_layers * (chunks + segments * batcher.segment)
+        if launches["paged_attn"] != want or launches["flash_fwd"] != 0:
+            raise AssertionError(
+                f"serve_moe: launches {launches}; want paged_attn = "
+                f"{cfg.num_layers} layers x ({chunks} chunks + {segments} "
+                f"segments x {batcher.segment} steps) = {want}, "
+                f"flash_fwd = 0")
+        kernel_tokens = _inproc_tokens(batcher, logprobs=True)
+        with plain_attention():
+            plain_tokens = _inproc_tokens(batcher, logprobs=True)
+        agreement = _agreement(kernel_tokens, plain_tokens)
+    train = _moe_train(_train_counters())
+    return {
+        "phase": "serve_moe", "ok": True, "fp32": fp32,
+        "config": f"LMConfig(num_experts={MOE_EXPERTS})",
+        "layers": cfg.num_layers, "embed_dim": cfg.embed_dim,
+        "mlp_dim": cfg.mlp_dim, "experts": cfg.num_experts,
+        "startup_s": startup_s,
+        "prompt_lens": [len(p) for p in PAGED_PROMPTS],
+        "max_tokens": SERVE_MAX_TOKENS, "completion_tokens": completions,
+        "wall_s": wall, "ttft_s": ttfts,
+        "aggregate_tokens_per_s": sum(completions) / wall,
+        "prefill_chunks": chunks, "decode_segments": segments,
+        "segment_tokens": batcher.segment, "launches": launches,
+        "bf16_agreement_with_plain": agreement, "drained": True,
+        "train": train,
+    }
+
+
 def _stream_until_first(port: int, body: dict, first: threading.Event):
     """POST a streamed completion; sets ``first`` at its first data frame
     (its prompt's pages are then in the prefix index) and returns
@@ -2434,6 +2807,14 @@ def main() -> int:
     paged_summary["launches_handoff_by_replica"] = {
         name: n["launches"]
         for name, n in serve_handoff["launches_by_replica"].items()}
+    _jline(phase_compile_cache())
+    serve_moe = phase_serve_moe(paged_counters)
+    _jline(serve_moe)
+    paged_summary["launches_moe"] = serve_moe["launches"]["paged_attn"]
+    moe_train = serve_moe["train"]["launches"]
+    summary["launches_moe_train"] = moe_train["flash_fwd"]
+    for s in bwd_summaries:
+        s["launches_moe_train"] = moe_train[s["name"]]
     train = phase_train()
     _jline(train)
     launches = train["benchmark"]["launches"]

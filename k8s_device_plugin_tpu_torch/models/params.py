@@ -15,6 +15,10 @@ is reshapes only:
 - ``embed.embedding`` / ``pos_embed.embedding`` stay ``[rows, E]``.
 - Norm ``scale`` / ``bias`` stay float32; ``lm_head.kernel`` is absent
   when ``tie_embeddings`` is set.
+- With experts, ``layer{i}/moe/{router/kernel, wi, wo}`` replaces
+  ``layer{i}/mlp``: the router kernel stays float32 in both layouts (the
+  reference routes in float32), the stacked ``[E, in, out]`` expert
+  weights keep their shape.
 
 Projection and embedding weights are cast to ``config.dtype`` for the
 serving layout (flax casts them on every call, to the same values) and
@@ -83,8 +87,15 @@ def params_from_jax(tree: dict, config: LMConfig, param_dtype=None) -> dict:
         for name in ("wq", "wk", "wv"):
             dense(f"{p}.attn.{name}", layer["attn"][name])
         dense(f"{p}.attn.wo", layer["attn"]["wo"], flatten_in=True)
-        for name in _dense_names(config):
-            dense(f"{p}.mlp.{name}", layer["mlp"][name])
+        if config.num_experts > 0:
+            moe = layer["moe"]
+            sd[f"{p}.moe.router.kernel"] = _t(moe["router"]["kernel"],
+                                              torch.float32)
+            sd[f"{p}.moe.wi"] = _t(moe["wi"], dt)
+            sd[f"{p}.moe.wo"] = _t(moe["wo"], dt)
+        else:
+            for name in _dense_names(config):
+                dense(f"{p}.mlp.{name}", layer["mlp"][name])
         norm(f"{p}.ln1", layer["ln1"])
         norm(f"{p}.ln2", layer["ln2"])
     norm("ln_f", tree["ln_f"])
@@ -137,9 +148,15 @@ def params_to_jax(state_dict: dict, config: LMConfig) -> dict:
             "wv": dense(f"{p}.attn.wv", config.kv_heads),
             "wo": dense(f"{p}.attn.wo", out_heads=True),
         }
-        mlp = {name: dense(f"{p}.mlp.{name}") for name in _dense_names(config)}
-        tree[f"layer{i}"] = {"attn": attn, "mlp": mlp,
+        tree[f"layer{i}"] = {"attn": attn,
                              "ln1": norm(f"{p}.ln1"), "ln2": norm(f"{p}.ln2")}
+        if config.num_experts > 0:
+            tree[f"layer{i}"]["moe"] = {
+                "router": {"kernel": arr(f"{p}.moe.router.kernel")},
+                "wi": arr(f"{p}.moe.wi"), "wo": arr(f"{p}.moe.wo")}
+        else:
+            tree[f"layer{i}"]["mlp"] = {
+                name: dense(f"{p}.mlp.{name}") for name in _dense_names(config)}
     tree["ln_f"] = norm("ln_f")
     if not config.tie_embeddings:
         tree["lm_head"] = dense("lm_head")

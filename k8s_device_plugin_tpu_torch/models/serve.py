@@ -18,8 +18,10 @@ decode --handoff-peer URL`` split one paged deployment into a replica
 that prefills and ships KV pages and one that decodes
 (models/handoff.py). ``--checkpoint DIR`` serves the weights, config
 and tokenizer of a port checkpoint directory (models/params.py;
-tools/orbax_to_torch.py converts the reference's). ``--device cpu`` runs
-it on the CPU.
+tools/orbax_to_torch.py converts the reference's). ``--experts N``
+serves switch-MoE layers (models/moe.py); ``--compile-cache-dir DIR``
+keeps the kernel libraries in a persistent cache, so a restart runs no
+nvcc (models/compile_cache.py). ``--device cpu`` runs it on the CPU.
 
 This module re-exports the public surface of serve_engine (device core),
 serve_batch (scheduling) and serve_http (protocol + CLI), as the

@@ -13,9 +13,22 @@ serve_http.py.
 
 PyTorch runs eagerly, so the reference's jitted programs become plain
 methods. The ``_dispatch`` seam stays: every shape-keyed serving
-program still routes through it, and "compile" now means the first
-call for a shape key (the counter and the phase histogram keep their
-names, so dashboards read the same families).
+program still routes through it, and the counter and the phase
+histogram keep their names, so dashboards read the same families. The
+phases of a dispatch, against the reference's (serve_engine.py
+``_dispatch``):
+
+- ``execute``: a hit on the shape-keyed program cache.
+- ``load``: a miss whose first call opened a kernel library from the
+  persistent compile cache (``--compile-cache-dir``,
+  models/compile_cache.py) and ran no nvcc; it does not count in
+  ``tpu_serve_jit_compiles_total``, as a reference disk load does not.
+- ``compile``: any other miss: one whose first call ran nvcc, or that
+  only built its closure (a shape met for the first time). It counts
+  in ``tpu_serve_jit_compiles_total{fn}``.
+
+Without a persistent cache no dispatch is ``load``, and every count is
+what it was before the cache existed.
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ import torch
 
 from k8s_device_plugin_tpu_torch.obs import metrics as obs_metrics
 from k8s_device_plugin_tpu_torch.obs import trace as obs_trace
+from k8s_device_plugin_tpu_torch.ops import _build
 from k8s_device_plugin_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger("llm-serve")
@@ -147,7 +161,8 @@ def default_config():
 
 class LMServer:
     def __init__(self, config=None, checkpoint: str | None = None,
-                 device=None, params: dict | None = None):
+                 device=None, params: dict | None = None,
+                 compile_cache_dir: str | None = None):
         """The serving engine on ``device`` (default: the card; raises
         when there is none — pass ``device="cpu"`` to run on the CPU).
 
@@ -158,7 +173,11 @@ class LMServer:
         whose tokenizer files, when there are any, set the tokenizer; else
         random ones from a generator seeded with 0 (the reference's
         PRNGKey(0)). A directory holding only the reference's orbax
-        ``params/`` raises ``ValueError`` naming tools/orbax_to_torch.py."""
+        ``params/`` raises ``ValueError`` naming tools/orbax_to_torch.py.
+
+        ``compile_cache_dir`` (else ``TPU_COMPILE_CACHE_DIR``; unset:
+        none) is the persistent kernel-library cache the process's
+        kernel builds go through (models/compile_cache.py)."""
         from k8s_device_plugin_tpu_torch.models import transformer
         from k8s_device_plugin_tpu_torch.models.params import (
             load_checkpoint,
@@ -200,6 +219,20 @@ class LMServer:
                 self.tokenizer, "vocab", {}
             ).get("<|endoftext|>")
         log.info("serving on %s", self.device)
+        # Persistent kernel cache: the process's kernel libraries open
+        # from this store when it holds them, and nvcc builds write back,
+        # so a restarted (or Nth) replica runs no nvcc.
+        from k8s_device_plugin_tpu_torch.models import compile_cache as cc
+
+        cache_dir = compile_cache_dir or cc.cache_dir_from_env()
+        self._compile_cache = None
+        if cache_dir:
+            pc = cc.CompileCache(cache_dir,
+                                 max_bytes=cc.max_bytes_from_env())
+            if pc.dir is not None:
+                self._compile_cache = pc
+                _build.set_persistent_cache(pc)
+                log.info("persistent compile cache at %s", cache_dir)
         model = transformer.DecoderLM(self.config)
         if params is not None:
             # strict: every weight of the config, no stray one; the copy
@@ -238,20 +271,29 @@ class LMServer:
         """Run one shape-keyed serving program with phase timing.
 
         The single dispatch seam for the program caches: a miss builds
-        the callable, bumps ``tpu_serve_jit_compiles_total{fn}`` and
-        times as ``phase="compile"`` (the first call of that shape);
-        a hit times as ``phase="execute"``. Each call emits a child
-        trace span."""
+        the callable and runs it; it times as ``phase="load"`` when that
+        first call opened a kernel library from the persistent cache and
+        ran no nvcc, else as ``phase="compile"`` and bumps
+        ``tpu_serve_jit_compiles_total{fn}`` (module docstring); a hit
+        times as ``phase="execute"``. Each call emits a child trace
+        span."""
         miss = key not in cache
-        phase = "compile" if miss else "execute"
+        phase = "execute"
         start = time.perf_counter()
         with obs_trace.span(f"serve.dispatch.{fn}", journal=False,
                             fn=fn) as sp:
             if miss:
-                _c_compiles().inc(fn=fn)
+                before = _build.stats()
                 cache[key] = build()
-            sp.fields["phase"] = phase
             out = cache[key](*args)
+            if miss:
+                after = _build.stats()
+                loaded = (after["cache_loads"] > before["cache_loads"]
+                          and after["builds"] == before["builds"])
+                phase = "load" if loaded else "compile"
+                if not loaded:
+                    _c_compiles().inc(fn=fn)
+            sp.fields["phase"] = phase
         _h_phase().observe(time.perf_counter() - start,
                            phase=phase, fn=fn)
         return out

@@ -16,9 +16,11 @@ page-block bundles, no client completions), ``--role decode
 --handoff-peer URL`` fetches bundles from that peer and decodes
 (models/handoff.py).
 
-The flag surface is the reference's, narrowed where the port still
-lacks a module (each narrowing is a gap in ROADMAP.md section C):
-no ``--compile-cache-dir`` (A4) and no ``--experts`` (A8).
+The flag surface is the reference's plus ``--device``.
+``--compile-cache-dir`` keeps the port's kernel libraries (the nvcc
+builds of csrc/) in a persistent cache (models/compile_cache.py), so a
+restart or a sibling replica on the same volume runs no nvcc.
+``--experts N`` serves switch-MoE layers (models/moe.py) on one device.
 ``--checkpoint`` reads the port's checkpoint directory
 (models/params.py), which tools/orbax_to_torch.py writes from the
 reference's. ``--device`` is new: the card by default, ``cpu`` on
@@ -109,6 +111,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "from seed 0")
     p.add_argument("--tiny", action="store_true",
                    help="tiny config for smoke tests")
+    p.add_argument("--experts", type=int, default=0,
+                   help="match a checkpoint trained with --experts N")
     p.add_argument("--device", default=None,
                    help="torch device to serve on (default: the CUDA "
                         "card, an error when there is none; 'cpu' runs "
@@ -188,6 +192,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "queue wait included (0 = none); requests may "
                         "override with a 'timeout' field; expiry "
                         "returns 504")
+    p.add_argument("--compile-cache-dir", default=None,
+                   help="persistent kernel cache directory (default: "
+                        "TPU_COMPILE_CACHE_DIR env, unset = disabled): "
+                        "the kernel libraries nvcc builds here are "
+                        "written to disk and opened — not rebuilt — by "
+                        "restarts and sibling replicas sharing the "
+                        "volume; size-capped via "
+                        "TPU_COMPILE_CACHE_MAX_BYTES")
     p.add_argument("--trace-debug", action="store_true",
                    help="serve GET /debug/traces and /debug/requests "
                         "(+ /<id>) from the in-memory rings on the main "
@@ -601,13 +613,19 @@ def main(argv=None, on_ready=None) -> int:
     slo_monitor = obs_slo.start_from_env()
     log_event("llm-serve", "open")
 
-    config = transformer.LMConfig.tiny() if args.tiny else None
+    if args.tiny:
+        config = transformer.LMConfig.tiny(num_experts=args.experts)
+    elif args.experts:
+        config = transformer.LMConfig(num_experts=args.experts)
+    else:
+        config = None
     with obs_trace.span("serve.startup",
                         parent=obs_trace.context_from_env(),
                         allocation_id=obs_trace.current_allocation_id(),
                         batching=args.batching):
         server = LMServer(config=config, checkpoint=args.checkpoint,
-                          device=args.device)
+                          device=args.device,
+                          compile_cache_dir=args.compile_cache_dir)
         if args.draft_layers:
             server.enable_draft(args.draft_layers, k=args.speculative_k)
         if args.batching == "continuous":

@@ -5,9 +5,11 @@ flags plus ``--device``, the same loop, log lines and preemption
 contract, over ``transformer.make_train_step`` on one device.
 
 - ``--mesh-axes`` takes axes of size 1 on one device (``dp``, ``tp``);
-  ``sp`` and ``ep`` (sequence parallelism, expert sharding) and
-  ``--experts`` raise, pointing at ROADMAP A8. ``--sp-impl`` is accepted
-  for the reference's command lines and does nothing without ``sp``.
+  ``sp`` and ``ep`` (sequence parallelism, expert sharding) raise,
+  pointing at ROADMAP A8. ``--experts N`` trains switch-MoE layers
+  (models/moe.py) on the one device, their aux loss in the objective.
+  ``--sp-impl`` is accepted for the reference's command lines and does
+  nothing without ``sp``.
 - Checkpoints are the port's own, not orbax's: under ``--checkpoint-dir``
   one directory per step holding ``state.pt`` (``{"params", "opt",
   "step"}`` via ``torch.save``), written under a temporary name and
@@ -50,7 +52,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=50)
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--experts", type=int, default=0,
-                   help="switch-MoE MLPs (not ported yet: raises for > 0)")
+                   help="use switch-MoE MLPs with this many experts (one "
+                   "device; the ep axis is not ported yet)")
     p.add_argument("--mesh-axes", default="dp,tp",
                    help="comma list from dp,sp,tp,ep; one device takes "
                    "dp and tp of size 1 (sp, ep: not ported yet)")
@@ -129,14 +132,10 @@ def main(argv=None) -> int:
     from k8s_device_plugin_tpu_torch.models import transformer
     from k8s_device_plugin_tpu_torch.utils.device import resolve_device
 
-    if args.experts:
-        raise NotImplementedError(
-            "--experts (MoE) is not ported to the PyTorch package yet "
-            "(ROADMAP.md, queue A, item A8)")
     shape = mesh_shape(args.mesh_axes)
     device = resolve_device(args.device)
-    config = transformer.LMConfig.tiny() if args.tiny \
-        else transformer.LMConfig()
+    config = transformer.LMConfig.tiny(num_experts=args.experts) \
+        if args.tiny else transformer.LMConfig(num_experts=args.experts)
     log.info("training on mesh %s (%s)", shape, device)
 
     step_fn, init_fn = transformer.make_train_step(config, device)

@@ -8,8 +8,10 @@ incremental steps), the paged-layout forward (a page pool read through
 per-row block tables: prefill chunks and decode steps), and training:
 ``loss_fn``, ``chunked_lm_loss``, ``make_train_step``,
 ``train_flops_per_step``, ``benchmark_train`` and the
-``lm-train-benchmark`` CLI (``main``). MoE and sequence parallelism are
-not ported yet (ROADMAP.md).
+``lm-train-benchmark`` CLI (``main``). ``num_experts > 0`` swaps every
+block's MLP for a switch-MoE layer (models/moe.py) whose aux loss joins
+``loss_fn``; sequence and expert parallelism wait for the port's mesh
+(ROADMAP.md, A8).
 
 Numerics follow flax's, since the tests hold this module to the
 reference's logits and gradients:
@@ -28,6 +30,10 @@ reference's logits and gradients:
   casts back. ``LayerNorm`` takes its statistics in float32
   (E[x^2] - E[x]^2, clipped at 0) and returns ``config.dtype``.
 - flax's ``nn.gelu`` is the tanh approximation.
+- flax's ``nn.Embed`` gathers in fill mode: an id outside ``[-vocab,
+  vocab)`` reads a NaN row (a negative id in range wraps), and the
+  request's logits are NaN from that position on; greedy argmax then
+  picks id 0, as jnp's does.
 
 Weights live in the layout of the reference's param tree (Dense kernels
 ``[in, out]``, DenseGeneral q/k/v ``[E, H*D]`` and o ``[H*D, E]``, the
@@ -47,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from k8s_device_plugin_tpu_torch.models.moe import MoEConfig, MoELayer
 from k8s_device_plugin_tpu_torch.ops.attention import flash_attention
 from k8s_device_plugin_tpu_torch.ops.paged_attention import paged_attention
 from k8s_device_plugin_tpu_torch.utils.device import resolve_device
@@ -70,8 +77,8 @@ class LMConfig:
     mlp_dim: int = 2048
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    # > 0 = switch-routed MoE MLPs in the reference; not ported yet, so
-    # the field is kept for config round-trips and refused at model build.
+    # > 0 turns every layer's MLP into a switch-routed MoE with this many
+    # experts (models/moe.py); the router aux loss joins loss_fn.
     num_experts: int = 0
     aux_loss_weight: float = 0.01
     # GPT-2-family knobs
@@ -479,14 +486,30 @@ class Block(nn.Module):
         self.ln1 = make_norm(cfg, trainable)
         self.attn = Attention(cfg, param_dtype)
         self.ln2 = make_norm(cfg, trainable)
-        self.mlp = MLP(cfg, param_dtype)
+        if cfg.num_experts > 0:
+            self.moe = MoELayer(
+                MoEConfig(num_experts=cfg.num_experts,
+                          embed_dim=cfg.embed_dim, mlp_dim=cfg.mlp_dim,
+                          dtype=cfg.dtype),
+                param_dtype)
+        else:
+            self.mlp = MLP(cfg, param_dtype)
 
     def forward(self, x, cache=None, layer: int = 0, prefill: bool = False,
-                pages=None):
+                pages=None, aux=None):
+        """``aux``: a list that collects the MoE layer's aux loss (the
+        reference's ``losses`` collection); None skips computing it."""
         # The residual stream keeps its dtype: x + (cfg.dtype output),
-        # as jnp promotion does for x in cfg.dtype.
+        # as jnp promotion does for x in cfg.dtype. An MoE layer returns
+        # its input's dtype (float32 after RMSNorm), which promotes it.
         x = x + self.attn(self.ln1(x), cache, layer, prefill, pages)
-        return x + self.mlp(self.ln2(x))
+        h = self.ln2(x)
+        if not hasattr(self, "moe"):
+            return x + self.mlp(h)
+        out, a = self.moe(h, with_aux=aux is not None)
+        if aux is not None:
+            aux.append(a)
+        return x + out
 
 
 class DecoderLM(nn.Module):
@@ -496,11 +519,6 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: LMConfig, param_dtype=None):
         super().__init__()
-        if cfg.num_experts:
-            raise NotImplementedError(
-                "MoE layers are not ported to the PyTorch package yet "
-                "(ROADMAP.md, queue A, item A8)"
-            )
         self.cfg = cfg
         self.embed = _param((cfg.vocab_size, cfg.embed_dim), cfg.dtype,
                             param_dtype)
@@ -515,7 +533,7 @@ class DecoderLM(nn.Module):
                                  cfg.dtype, param_dtype)
 
     def forward(self, tokens, cache=None, prefill: bool = False,
-                return_features: bool = False, pages=None):
+                return_features: bool = False, pages=None, aux=None):
         """Logits (float32 ``[b, s, vocab]``) for ``tokens [b, s]``.
 
         Without a cache: the full-sequence causal forward. With a
@@ -526,13 +544,19 @@ class DecoderLM(nn.Module):
         ``lens + arange(s)``, which writes every layer's K/V into the pool
         and advances nothing (the engine owns the lengths).
         ``return_features`` returns the final norm's output instead of
-        logits (the chunked loss applies the head itself)."""
+        logits (the chunked loss applies the head itself). ``aux``, a
+        list, collects each MoE layer's aux loss."""
         cfg = self.cfg
         s = tokens.shape[1]
-        # Out-of-range ids clamp, as the reference's gather does. flax
-        # casts the table to cfg.dtype before the gather, so repeated
-        # tokens' gradients sum in cfg.dtype too.
-        x = self.embed.to(cfg.dtype)[tokens.clamp(0, cfg.vocab_size - 1)]
+        # flax casts the table to cfg.dtype before the gather, so
+        # repeated tokens' gradients sum in cfg.dtype too. Its gather is
+        # jnp.take's fill mode: ids in [-vocab, 0) wrap, ids outside
+        # [-vocab, vocab) read a NaN row (the module docstring).
+        vocab = cfg.vocab_size
+        valid = (tokens >= -vocab) & (tokens < vocab)
+        ids = torch.where(tokens < 0, tokens + vocab, tokens)
+        x = self.embed.to(cfg.dtype)[ids.clamp(0, vocab - 1)]
+        x = torch.where(valid[..., None], x, torch.nan)
         if cfg.position == "learned":
             ar = torch.arange(s, device=tokens.device)
             if pages is not None:
@@ -548,7 +572,7 @@ class DecoderLM(nn.Module):
             pos = self.pos_embed.to(cfg.dtype)[positions]
             x = x + (pos if pos.dim() == 3 else pos[None])
         for i, layer in enumerate(self.layers):
-            x = layer(x, cache, i, prefill, pages)
+            x = layer(x, cache, i, prefill, pages, aux)
         if cache is not None and pages is None:
             cache.idx = cache.idx + s
         x = self.ln_f(x)
@@ -578,7 +602,8 @@ def _trunc_normal_(t: torch.Tensor, std: float, gen: torch.Generator):
 
 def init_params(model: DecoderLM, seed: int = 0) -> DecoderLM:
     """Random weights from a seeded generator, with flax's defaults:
-    lecun_normal Dense kernels (fan_in = input width), zero biases,
+    lecun_normal Dense kernels (fan_in = input width; an MoE layer's
+    stacked expert weights: experts x input width), zero biases,
     unit-variance-scaled embeddings (std 1/sqrt(E)), unit norm scales."""
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -592,6 +617,12 @@ def init_params(model: DecoderLM, seed: int = 0) -> DecoderLM:
                 m.scale.fill_(1.0)
                 if isinstance(m, LayerNorm):
                     m.bias.zero_()
+            elif isinstance(m, MoELayer):
+                # lecun_normal of a stacked [E, in, out] weight: flax's
+                # fan_in counts the expert axis as receptive field.
+                for w in (m.wi, m.wo):
+                    _trunc_normal_(w, (w.shape[0] * w.shape[1]) ** -0.5,
+                                   gen)
         std = model.cfg.embed_dim ** -0.5
         for name in ("embed", "pos_embed"):
             p = getattr(model, name, None)
@@ -643,21 +674,27 @@ def loss_fn(model: DecoderLM, tokens, loss_chunks: int = 0):
     """Next-token LM loss: targets ``roll(tokens, -1)``, mean
     cross-entropy of the float32 logits ``[:, :-1]``. ``loss_chunks > 0``
     switches to ``chunked_lm_loss`` (same numbers, O(S/chunks * vocab)
-    peak logits memory)."""
+    peak logits memory). With experts, ``aux_loss_weight`` times the sum
+    of the layers' router aux losses is added, as the reference does."""
     cfg = model.cfg
     targets = torch.roll(tokens, -1, dims=1)
+    aux = [] if cfg.num_experts > 0 else None
     if loss_chunks:
-        feats = model(tokens, return_features=True)
+        feats = model(tokens, return_features=True, aux=aux)
         s = tokens.shape[1]
         mask = (torch.arange(s, device=tokens.device) < s - 1).float()
         kernel = model.embed.T if cfg.tie_embeddings \
             else model.lm_head.kernel
-        return chunked_lm_loss(feats, kernel, targets,
+        base = chunked_lm_loss(feats, kernel, targets,
                                mask.expand(tokens.shape), loss_chunks,
                                compute_dtype=cfg.dtype)
-    logits = model(tokens)
-    return F.cross_entropy(logits[:, :-1].reshape(-1, cfg.vocab_size),
-                           targets[:, :-1].reshape(-1))
+    else:
+        logits = model(tokens, aux=aux)
+        base = F.cross_entropy(logits[:, :-1].reshape(-1, cfg.vocab_size),
+                               targets[:, :-1].reshape(-1))
+    if aux is None:
+        return base
+    return base + cfg.aux_loss_weight * sum(aux)
 
 
 def default_optimizer(params) -> torch.optim.Optimizer:

@@ -59,6 +59,14 @@ PAGED_ATTN_COMBINE = KernelStats(
 )
 
 
+def _visible_values(vc, q_pos):
+    """Gathered values ``[b, span, kv, d]`` with every position past the
+    row's last query position set to 0 (a select, not a product)."""
+    k_pos = torch.arange(vc.shape[1], device=vc.device)
+    seen = k_pos[None, :] <= q_pos.amax(1)[:, None]           # [b, span]
+    return torch.where(seen[:, :, None, None], vc, 0)
+
+
 def paged_attention_reference(q, k_pages, v_pages, bt, q_pos):
     """Plain paged attention; the numerical reference for B2.
 
@@ -67,14 +75,17 @@ def paged_attention_reference(q, k_pages, v_pages, bt, q_pos):
     the unexpanded-GQA scores (q head h = kv · n_rep + r) in the input
     dtype, cast to float32 and scaled, masked with -1e30 past each
     query's position, softmax in float32, probabilities cast back to the
-    input dtype for the PV product."""
+    input dtype for the PV product. Values past the row's last query
+    position are selected away (zeroed) before that product, as B2 never
+    reads them: a freed page's stale entries there may be NaN, and a
+    zero probability times NaN is NaN."""
     b, L, heads, d = q.shape
     kv_heads, page_tokens = k_pages.shape[2], k_pages.shape[1]
     n_rep = heads // kv_heads
     span = bt.shape[1] * page_tokens
     idx = bt.long()
     kc = k_pages[idx].reshape(b, span, kv_heads, d)
-    vc = v_pages[idx].reshape(b, span, kv_heads, d)
+    vc = _visible_values(v_pages[idx].reshape(b, span, kv_heads, d), q_pos)
     qg = q.reshape(b, L, kv_heads, n_rep, d)
     scores = torch.einsum("blkrd,bmkd->bkrlm", qg, kc).float() * d ** -0.5
     k_pos = torch.arange(span, device=q.device)
@@ -115,7 +126,8 @@ def paged_attention_fp32(q, k_pages, v_pages, bt, q_pos, round_p=False):
     span = bt.shape[1] * page_tokens
     idx = bt.long()
     kc = k_pages[idx].reshape(b, span, kv_heads, d).float()
-    vc = v_pages[idx].reshape(b, span, kv_heads, d).float()
+    vc = _visible_values(v_pages[idx].reshape(b, span, kv_heads, d),
+                         q_pos).float()
     qg = q.reshape(b, L, kv_heads, n_rep, d).float()
     scores = torch.einsum("blkrd,bmkd->bkrlm", qg, kc) * d ** -0.5
     k_pos = torch.arange(span, device=q.device)

@@ -7,7 +7,10 @@ The host-only modules the port needs are copies of the reference's,
 equal to their source after the import-prefix substitution; COPIES is
 the list. models/handoff.py left it when its bundles learned to carry
 bfloat16 without ``ml_dtypes``: every definition of it but those is
-still the reference's (HANDOFF_CHANGED, HANDOFF_ADDED).
+still the reference's (HANDOFF_CHANGED, HANDOFF_ADDED). PORTED lists
+the modules rewritten for the port whose reference imports jax
+(models/compile_cache.py, models/moe.py): walked like the rest, and
+keeping the reference's public names.
 """
 
 import ast
@@ -28,6 +31,15 @@ COPIES = [
     "utils/watchdog.py",
     "models/tokenizer.py", "models/serve_text.py", "models/kv_cache.py",
 ]
+# Port modules whose reference counterpart imports jax: walked like every
+# port module, and holding the reference's public names.
+PORTED = {"models/compile_cache.py": ("CACHE_VERSION",
+                                      "ENV_COMPILE_CACHE_DIR",
+                                      "ENV_COMPILE_CACHE_MAX_BYTES",
+                                      "CompileCache", "backend_fingerprint",
+                                      "cache_dir_from_env",
+                                      "max_bytes_from_env"),
+          "models/moe.py": ("MoEConfig", "MoELayer", "is_expert_weight")}
 # models/handoff.py: the definitions that differ from the reference's
 # (bfloat16 held as tagged 16-bit words) and those the port adds.
 HANDOFF_CHANGED = {"_np_dtype", "PageBlockBundle.to_bytes"}
@@ -72,6 +84,32 @@ def test_the_walk_catches_a_reference_import(tmp_path):
     roots = [r for r, _ in _imported_roots(str(src))]
     assert roots == ["k8s_device_plugin_tpu_torch", "k8s_device_plugin_tpu"]
     assert [r for r in roots if r in FORBIDDEN] == ["k8s_device_plugin_tpu"]
+
+
+@pytest.mark.parametrize("rel", sorted(PORTED))
+def test_ported_module_is_walked_and_keeps_the_reference_names(rel):
+    path = os.path.join(PORT, rel)
+    assert path in _port_sources()
+    assert [r for r, _ in _imported_roots(path) if r in FORBIDDEN] == []
+    ref = _definitions(os.path.join(REF, rel))
+    port = _definitions(path)
+    for name in PORTED[rel]:
+        assert name in ref and name in port, name
+
+
+def test_atomic_write_bytes_is_the_references():
+    """models/compile_cache.py keeps its own ``atomic_write_bytes`` (the
+    reference's dpm/checkpoint.py imports more than the port needs): its
+    statements after the docstring equal the reference's."""
+    def body(path):
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        (fn,) = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+                 and n.name == "atomic_write_bytes"]
+        return [ast.dump(n) for n in fn.body[1:]], ast.dump(fn.args)
+
+    assert body(os.path.join(PORT, "models/compile_cache.py")) == \
+        body(os.path.join(REF, "dpm/checkpoint.py"))
 
 
 @pytest.mark.parametrize("rel", COPIES)

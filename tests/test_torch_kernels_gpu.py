@@ -689,3 +689,104 @@ def test_paged_attention_kernel_at_n_rep_8(cuda, L, dtype, tol):
             *args, round_p=plan.route == "chunk")
         assert paged_attention.row_rel_err(got, close) <= \
             paged_attention.PAGED_BF16_ROW_TOL
+
+
+# ---------------------------------------------------------------------------
+# out-of-vocab ids: NaN K/V stay inside their request (ROADMAP C6)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("L,dtype", [(1, torch.bfloat16), (64, torch.bfloat16),
+                                     (1, torch.float32)])
+def test_paged_attention_kernel_never_reads_stale_nan(cuda, L, dtype):
+    """NaN in every pool slot past each row's last query position (a
+    freed page's stale entries, the scratch page): B2's output is finite
+    and bit-equal to the launch over the same pools with those slots
+    finite, on both routes."""
+    lens = [1000, 37, 0, -1]
+    q, k, v, bt, q_pos = paged_inputs(4, L, 16, 4, 64, 16, lens, dtype,
+                                      seed=21)
+    want = paged_attention.paged_attention(q, k, v, bt, q_pos)
+    page_tokens = k.shape[1]
+    kn, vn = k.clone(), v.clone()
+    kn[0], vn[0] = torch.nan, torch.nan                  # the scratch page
+    for r in range(4):
+        last = int(q_pos[r].max())
+        for slot in range(bt.shape[1]):
+            page, first = int(bt[r, slot]), slot * page_tokens
+            if page and first + page_tokens > last + 1:
+                off = max(0, last + 1 - first)
+                kn[page, off:], vn[page, off:] = torch.nan, torch.nan
+    got = paged_attention.paged_attention(q, kn, vn, bt, q_pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[:3]).all()                 # row 3: scratch
+    assert torch.equal(got[:3], want[:3])
+
+
+def test_paged_engine_on_card_reuses_pages_of_an_oov_request(cuda):
+    """A request with an out-of-vocab id (NaN K/V, greedy id 0), then a
+    request that reuses its pages: the second decodes the tokens it
+    decodes on a fresh pool, through B2."""
+    oov = [5, 17, 300, 99, 3] + list(range(8, 41))
+    nxt = [(i * 7 + 3) % 256 for i in range(11)]
+    srv = LMServer(config=SMALL, device=cuda)
+
+    def one_by_one(jobs):
+        eng = ContinuousBatcher(srv, max_batch=1, segment_tokens=4,
+                                kv_mode="paged", page_tokens=8,
+                                prefill_chunk=16, pool_pages=9)
+        out = []
+        for p, n in jobs:
+            out.append(eng.wait(eng.submit_async(p, n), timeout=120)[0])
+        assert eng.drain(timeout=30)
+        return out
+
+    before = paged_attention.PAGED_ATTN.launches
+    first, after = one_by_one([(oov, 6), (nxt, 12)])
+    assert first[len(oov):] == [0] * 6
+    assert after == one_by_one([(nxt, 12)])[0]
+    assert paged_attention.PAGED_ATTN.launches > before
+
+
+# ---------------------------------------------------------------------------
+# the persistent kernel cache with the real nvcc
+# ---------------------------------------------------------------------------
+
+def test_persistent_cache_builds_then_reopens_every_library(cuda, tmp_path,
+                                                            monkeypatch):
+    """Every csrc/ source through a persistent cache: a cold process
+    runs nvcc once a library and writes it back; a warm one (nothing
+    loaded, a fresh store on the same directory) runs no nvcc and opens
+    every library from the cache; the kernels then run from those
+    libraries and agree with their plain versions."""
+    import os
+
+    from k8s_device_plugin_tpu_torch.models.compile_cache import CompileCache
+    from k8s_device_plugin_tpu_torch.ops import _build
+
+    names = sorted(f[:-3] for f in os.listdir(_build.CSRC)
+                   if f.endswith(".cu"))
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_persistent", None)
+    _build.set_persistent_cache(CompileCache(str(tmp_path)))
+    before = _build.stats()
+    for name in names:
+        _build.load(name)
+    after = _build.stats()
+    assert after["builds"] - before["builds"] == len(names)
+    assert len([p for p in tmp_path.iterdir()
+                if p.name.endswith(".culib")]) == len(names)
+    monkeypatch.setattr(_build, "_libs", {})
+    _build.set_persistent_cache(CompileCache(str(tmp_path)))
+    for name in names:
+        _build.load(name)
+    warm = _build.stats()
+    assert warm["builds"] == after["builds"]
+    assert warm["cache_loads"] - after["cache_loads"] == len(names)
+    q, k, v = _qkv((2, 4, 256, 64), 4, torch.bfloat16, seed=3)
+    got = attention.flash_attention(q, k, v, causal=True)
+    want = attention.reference_attention(q, k, v, causal=True)
+    assert (got.float() - want.float()).abs().max().item() <= 3e-2
+    args = paged_inputs(2, 1, 8, 8, 64, 16, [300, 40], torch.float32)
+    got = paged_attention.paged_attention(*args)
+    want = paged_attention.paged_attention_reference(*args)
+    assert (got - want).abs().max().item() <= 1e-5

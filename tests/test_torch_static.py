@@ -784,10 +784,9 @@ def test_static_flags_and_role_parser_error(capsys):
                               "2.5", "--warmup-tokens", "48"])
     assert (args.batching, args.batch_window_ms, args.warmup_tokens) == (
         "static", 2.5, 48)
-    # the reference's flags, less A4's and A8's, plus --device
+    # the reference's flags plus --device
     ref = _options(jhttp.build_arg_parser())
-    assert _options(parser) == (ref - {"--compile-cache-dir",
-                                       "--experts"}) | {"--device"}
+    assert _options(parser) == ref | {"--device"}
     with pytest.raises(SystemExit) as ei:
         serve_http.main(["--batching", "static", "--role", "prefill"])
     assert ei.value.code == 2

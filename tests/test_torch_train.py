@@ -265,8 +265,10 @@ def test_trainer_without_device_raises_here():
 
 @pytest.mark.parametrize("argv", [["--mesh-axes", "dp,sp"],
                                   ["--mesh-axes", "ep"],
-                                  ["--experts", "2"]])
+                                  ["--experts", "2", "--mesh-axes", "dp,ep"]])
 def test_trainer_refuses_what_waits_for_a8(argv):
+    """sp and ep need several devices; --experts alone trains (on one
+    device, tests/test_torch_moe.py), sharding experts over ep waits."""
     with pytest.raises(NotImplementedError, match="A8"):
         ttrain.main(["--tiny", "--device", "cpu", "--steps", "1", *argv])
 

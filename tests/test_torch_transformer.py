@@ -168,5 +168,14 @@ def test_config_json_round_trips_across_packages(name):
 
 
 def test_moe_config_is_refused():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.DecoderLM(tt.LMConfig.tiny(num_experts=2))
+    """MoE configs build since the one-device MoE port (switch layers in
+    place of the MLPs; tests/test_torch_moe.py holds them to the
+    reference); what stays refused is sharding the experts over an
+    ``ep`` mesh axis, which waits for the port's mesh (A8)."""
+    from k8s_device_plugin_tpu_torch.models import train as ttrain
+
+    model = tt.DecoderLM(tt.LMConfig.tiny(num_experts=2))
+    assert all(hasattr(b, "moe") and not hasattr(b, "mlp")
+               for b in model.layers)
+    with pytest.raises(NotImplementedError, match="A8"):
+        ttrain.mesh_shape("dp,ep")
