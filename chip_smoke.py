@@ -135,6 +135,28 @@ exits non-zero without a result:
 - ``train_profile``: torch.profiler over one flagship training step:
   device busy time, idle share, the largest kernels, B1/B3/B4's share.
 
+- ``convnets``: the conv workloads (models/alexnet.py, resnet.py,
+  mobilenet.py, inception.py; ops/s2d.py's stems). One train step of
+  AlexNet (224^2, batch 4), ResNet-50 (224^2, 2), MobileNetV2 (224^2, 4)
+  and InceptionV3 (299^2, 2) from one seeded init and batch, on the card
+  against the CPU path in float64: in float64, the loss and train-mode
+  logits and every parameter and running statistic after it within 1e-4;
+  in float32 (TF32 off), the loss and logits within 1e-4 and each
+  tensor's error recorded, beside the CPU's own float32 step's.
+  Then the example pod's command as a process (``python -m
+  k8s_device_plugin_tpu_torch.models.alexnet --steps 100 --batch-size
+  128 --json``: spawn-to-exit wall, img/s, a final loss below the first
+  step's); ``benchmark()`` at the published shapes (AlexNet 1024 x 60,
+  bench/hw.py's; ResNet-50 256 x 50, resnet-tpu.yaml's; ResNet-50,
+  MobileNetV2, InceptionV3 32 x 50, the convnet pod's): img/s and peak
+  memory; the flagship forward (__graft_entry__: AlexNet inference,
+  batch 16) by CUDA events; torch.profiler over one AlexNet step at
+  batch 128 and one ResNet-50 step at batch 256 (busy time, idle share,
+  launches, largest kernels, TFLOP/s from the layer shapes against the
+  bf16 peak); ``space_to_depth_conv`` against ``direct_conv`` at the
+  stems' shapes (float32 outputs agree, bf16 times). No kernel of the
+  port launches: B1-B4's counts stay 0.
+
 Then the card's name and power limit (nvidia-smi), the ``{"kernels":
 [...]}`` line and, last, ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -148,6 +170,7 @@ import concurrent.futures
 import contextlib
 import json
 import logging
+import math
 import os
 import re
 import subprocess
@@ -893,18 +916,25 @@ def _host_reads(prof) -> int:
 def _profiled(srv, fn) -> dict:
     """One call of ``fn`` under torch.profiler: wall and device busy
     time, idle share, launches, host reads, verify rounds, the flash
-    (B1) and paged (B2) kernels' time and the largest kernels."""
+    (B1) and paged (B2) kernels' time and the largest kernels. B2's
+    launches are its wrapper's count; the profiler's count of its kernel
+    events stands beside it (CUPTI can drop an activity record, so the
+    trace may count one launch fewer)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from k8s_device_plugin_tpu_torch.ops.paged_attention import PAGED_ATTN
+
     torch.cuda.synchronize()
     srv.reset_spec_stats()
+    launched = PAGED_ATTN.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = PAGED_ATTN.launches - launched
     events = _device_events(prof)
     busy = sum(ms for _, ms, _ in events)
     return {
@@ -915,7 +945,8 @@ def _profiled(srv, fn) -> dict:
                              if "paged_attn" in k),
         "kernels": len(events),
         "launches": sum(n for _, _, n in events),
-        "paged_attn_launches": sum(
+        "paged_attn_launches": launched,
+        "paged_attn_traced": sum(
             n for k, _, n in events if "paged_attn" in k
             and "combine" not in k),
         "host_reads": _host_reads(prof),
@@ -2737,6 +2768,393 @@ def phase_train_profile() -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# convnets: AlexNet, ResNet-50, MobileNetV2, InceptionV3
+# ---------------------------------------------------------------------------
+
+# (model, image size, batch) of the float32 card = CPU train step
+CONV_EXACT = (("alexnet", 224, 4), ("resnet50", 224, 2),
+              ("mobilenetv2", 224, 4), ("inceptionv3", 299, 2))
+CONV_EXACT_TOL = 1e-4
+# A tensor whose largest magnitude is below this compares against it: a
+# BatchNorm bias whose gradient is zero in exact arithmetic (MobileNetV2's
+# projection BatchNorm before a block without a residual feeds only the
+# next BatchNorm's mean) holds rounding alone after a step (~2e-8).
+CONV_EXACT_FLOOR = 1e-3
+CONV_POD_ARGV = ["--steps", "100", "--batch-size", "128", "--json"]
+CONV_POD_KEYS = ["backend", "batch_size", "steps", "seconds",
+                 "images_per_second", "final_loss"]
+# The published shapes timed through benchmark(): (model, batch, steps,
+# where the shape is published).
+CONV_SHAPES = (
+    ("alexnet", 1024, 60, "k8s_device_plugin_tpu/bench/hw.py:54-55"),
+    ("resnet50", 256, 50, "example/pod/resnet-tpu.yaml:16-17"),
+    ("resnet50", 32, 50, "example/pod/convnet-benchmarks-tpu.yaml:19-24"),
+    ("mobilenetv2", 32, 50, "example/pod/convnet-benchmarks-tpu.yaml:19-24"),
+    ("inceptionv3", 32, 50, "example/pod/convnet-benchmarks-tpu.yaml:19-24"),
+)
+CONV_FORWARD_BATCH = 16            # __graft_entry__.py:33
+CONV_PROFILES = (("alexnet", 128), ("resnet50", 256))
+# (label, batch, taps, stride, padding) of the stems timed both ways
+CONV_STEMS = (("alexnet_11x11_s4", 128, 11, 4, 2),
+              ("resnet_7x7_s2", 256, 7, 2, 3))
+
+
+def _conv_model(name: str, dtype):
+    """(a fresh seeded model on the CPU, its optimizer factory, its image
+    size) as each benchmark() builds them."""
+    from k8s_device_plugin_tpu_torch.models import (
+        alexnet,
+        inception,
+        mobilenet,
+        resnet,
+    )
+
+    if name == "alexnet":
+        return (alexnet.init_params(0, dtype=dtype), alexnet.momentum_sgd,
+                alexnet.IMAGE_SIZE)
+    if name == "resnet50":
+        model = resnet.init_variables(resnet.ResNet(dtype=dtype))
+    elif name == "mobilenetv2":
+        model = mobilenet.init_variables(mobilenet.MobileNetV2(dtype=dtype))
+    else:
+        return (inception.init_variables(inception.InceptionV3(dtype=dtype)),
+                resnet.nesterov_sgd, inception.IMAGE_SIZE)
+    return model, resnet.nesterov_sgd, resnet.IMAGE_SIZE
+
+
+def _rel_err(got, want, floor: float = 0.0) -> float:
+    """max |got - want| over max |want| (at least ``floor``; 0 where both
+    are all zero)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    scale = max(float(want.abs().max()), floor)
+    diff = float((got - want).abs().max())
+    return diff / scale if scale else diff
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """float32 convolutions and matmuls in float32: cuDNN and cuBLAS use
+    TF32 by default, which would compare TF32 with the CPU's float32."""
+    import torch
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _conv_exactness() -> dict:
+    """One train step of each model at full width from one seeded init
+    and batch, on the card against the CPU path in float64 (the code the
+    CPU tests hold to the reference): in float64 on the card, the step's
+    loss and train-mode logits and every parameter and running statistic
+    after it within CONV_EXACT_TOL of the tensor's largest magnitude
+    (floored at CONV_EXACT_FLOOR); in float32 on the card (TF32 off), the
+    loss and logits within CONV_EXACT_TOL and each tensor's error
+    recorded, beside the CPU's own float32 step. A float32 step cannot be
+    held to 1e-4 tensor by tensor: at a fresh init these gradients are
+    ill-conditioned (in float64 on the CPU, scaling InceptionV3's input
+    by 1 + 1e-7 noise moves its first conv's gradient by 1.9%), so the
+    CPU's own float32 step leaves 253 of InceptionV3's 472 tensors, 97
+    of MobileNetV2's 262 and ResNet-50's stem kernel (2.7e-4) further
+    than 1e-4 from the float64 one, while loss and logits stay within
+    4e-5."""
+    import copy
+
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models import alexnet
+
+    def step(model, optimizer, x, y):
+        logits = []
+        hook = model.register_forward_hook(
+            lambda m, i, o: logits.append(o.detach()))
+        try:
+            loss = alexnet.make_train_step(
+                model, optimizer(model.parameters()))(x, y)
+        finally:
+            hook.remove()
+        return loss, logits[0], model.state_dict()
+
+    def errors(got, want):
+        tensors = {k: _rel_err(got[2][k], v, CONV_EXACT_FLOOR)
+                   for k, v in want[2].items()}
+        worst = max(tensors, key=tensors.get)
+        return {"loss": _rel_err(got[0], want[0]),
+                "logits": _rel_err(got[1], want[1]),
+                "state_max": tensors[worst], "state_worst": worst,
+                "tensors_over_tol": sum(e > CONV_EXACT_TOL
+                                        for e in tensors.values())}
+
+    out = {}
+    with _no_tf32():
+        for name, size, batch in CONV_EXACT:
+            narrow, optimizer, _ = _conv_model(name, torch.float32)
+            wide, _, _ = _conv_model(name, torch.float64)
+            wide.to(torch.float64)
+            x, y = alexnet.synthetic_batch(torch.Generator().manual_seed(0),
+                                           batch, size)
+            on_card = {
+                dtype: step(copy.deepcopy(model).to("cuda", memory_format=fmt),
+                            optimizer, x.to("cuda", dtype, memory_format=fmt),
+                            y.cuda())
+                # float64 in NCHW: cuDNN's double convolutions
+                for dtype, model, fmt in (
+                    (torch.float64, wide, torch.contiguous_format),
+                    (torch.float32, narrow, torch.channels_last))}
+            want = step(wide, optimizer, x.double(), y)
+            row = {"image_size": size, "batch": batch,
+                   "tensors": len(want[2]),
+                   "card_fp64": errors(on_card[torch.float64], want),
+                   "card_fp32": errors(on_card[torch.float32], want),
+                   "cpu_fp32": errors(step(narrow, optimizer, x, y), want)}
+            e64, e32 = row["card_fp64"], row["card_fp32"]
+            if max(e64["loss"], e64["logits"], e64["state_max"],
+                   e32["loss"], e32["logits"]) > CONV_EXACT_TOL \
+                    or not math.isfinite(float(on_card[torch.float32][0])):
+                raise AssertionError(f"convnets: {name} card != CPU: {row}")
+            out[name] = row
+            del narrow, wide, on_card, want
+            torch.cuda.empty_cache()
+    return out
+
+
+def _conv_pod() -> dict:
+    """The example pod's command (example/pod/alexnet-tpu.yaml:16-17) as
+    a process: the wall from spawn to exit, the keys and numbers it
+    prints, and a final loss below the first step's (the first step's
+    loss: benchmark(128, 1 step, no warm-up) in this process, the same
+    seeded init and batch)."""
+    from k8s_device_plugin_tpu_torch.models import alexnet
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "k8s_device_plugin_tpu_torch.models.alexnet",
+         *CONV_POD_ARGV], cwd=HERE, env=env, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"convnets: the pod command exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    if list(result) != CONV_POD_KEYS or result["backend"] != "gpu":
+        raise AssertionError(f"convnets: the pod printed {result}")
+    first = alexnet.benchmark(128, steps=1, warmup=0)["final_loss"]
+    if not (math.isfinite(result["final_loss"])
+            and result["final_loss"] < first):
+        raise AssertionError(f"convnets: the pod's loss did not fall: "
+                             f"first {first}, final {result['final_loss']}")
+    return {"argv": CONV_POD_ARGV, "process_wall_s": wall,
+            "first_loss": first, **result}
+
+
+def _conv_shapes() -> list:
+    """benchmark() at each published shape: img/s, seconds, final loss
+    and the peak of torch.cuda.max_memory_allocated."""
+    import gc
+
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models import (
+        alexnet,
+        inception,
+        mobilenet,
+        resnet,
+    )
+
+    run = {"alexnet": alexnet.benchmark,
+           "resnet50": lambda b, s: resnet.benchmark(b, s, depth=50),
+           "mobilenetv2": mobilenet.benchmark,
+           "inceptionv3": inception.benchmark}
+    rows = []
+    for name, batch, steps, source in CONV_SHAPES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        result = run[name](batch, steps)
+        if not math.isfinite(result["final_loss"]):
+            raise AssertionError(f"convnets: {name} b{batch}: {result}")
+        rows.append({"model": name, "batch": batch, "steps": steps,
+                     "source": source,
+                     "images_per_second": result["images_per_second"],
+                     "seconds": result["seconds"],
+                     "final_loss": result["final_loss"],
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return rows
+
+
+def _conv_forward() -> dict:
+    """__graft_entry__'s flagship forward on the card: AlexNet inference
+    at batch 16 x 224^2 (bf16, seeded init), timed by CUDA events."""
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models import alexnet
+
+    model = alexnet.init_params(0).to("cuda",
+                                      memory_format=torch.channels_last)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images, _ = alexnet.synthetic_batch(gen, CONV_FORWARD_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    logits = alexnet.forward(model, images)
+    if tuple(logits.shape) != (CONV_FORWARD_BATCH, alexnet.NUM_CLASSES) \
+            or not bool(logits.isfinite().all()):
+        raise AssertionError(f"convnets: forward gave {logits.shape}")
+    ms = cuda_ms(lambda: alexnet.forward(model, images), iters=50)
+    return {"batch": CONV_FORWARD_BATCH, "ms": ms,
+            "images_per_second": CONV_FORWARD_BATCH / ms * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def conv_forward_flops(model, image_size: int) -> int:
+    """FLOP of one image's forward from the layer shapes: 2 x H_out x
+    W_out x C_in/groups x k_h x k_w x C_out per conv and 2 x in x out
+    per dense. The stem counts as the direct conv it computes (the
+    space-to-depth form multiplies padded taps too). A training step is
+    3x this (forward, and the two products of the backward)."""
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models import layers
+
+    total = 0
+
+    def count(module, _, out):
+        nonlocal total
+        if isinstance(module, layers.Conv):
+            total += 2 * out[0].numel() * module.weight[0].numel()
+        else:
+            total += 2 * module.weight.numel()
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (layers.Conv, layers.Dense))]
+    try:
+        x = torch.zeros(1, 3, image_size, image_size,
+                        device=next(model.parameters()).device)
+        with torch.no_grad():
+            model(x, train=False)
+    finally:
+        for h in hooks:
+            h.remove()
+    stem = getattr(model, "stem_kernel", None)
+    if stem is not None:
+        taps = stem.shape[-1]
+        stride, pad = (4, 2) if taps == 11 else (2, 3)
+        side = (image_size + 2 * pad - taps) // stride + 1
+        total += 2 * side * side * stem.numel()
+    return total
+
+
+def _conv_profile(name: str, batch: int) -> dict:
+    """torch.profiler over one bf16 training step (after three warm-up
+    steps): device busy time, idle share, launches, the largest kernels,
+    and the step's FLOP (3 x conv_forward_flops x batch) over the wall
+    and over the busy time against the bf16 peak."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from k8s_device_plugin_tpu_torch.models import alexnet
+
+    model, optimizer, size = _conv_model(name, torch.bfloat16)
+    model.to("cuda", memory_format=torch.channels_last)
+    step = alexnet.make_train_step(model, optimizer(model.parameters()))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images, labels = alexnet.synthetic_batch(gen, batch, size)
+    torch.backends.cudnn.benchmark = True
+    for _ in range(3):
+        step(images, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(images, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = _device_events(prof)
+    busy = sum(ms for _, ms, _ in events)
+    if not busy:
+        raise AssertionError(f"convnets: the {name} profile saw no device "
+                             "time")
+    flop = 3 * batch * conv_forward_flops(model, size)
+    peak = PEAK_OPS_PER_S["torch.bfloat16"]
+    return {"batch": batch, "image_size": size, "wall_ms": wall_ms,
+            "device_busy_ms": busy, "device_idle_share": 1 - busy / wall_ms,
+            "kernels": len(events), "launches": sum(n for _, _, n in events),
+            "train_flop": flop,
+            "tflops_per_s_wall": flop / wall_ms / 1e9,
+            "tflops_per_s_busy": flop / busy / 1e9,
+            "peak_share_wall": flop / (wall_ms / 1e3) / peak,
+            "top": [[k[:80], ms, n] for k, ms, n in events[:10]]}
+
+
+def _conv_stems() -> dict:
+    """space_to_depth_conv against direct_conv on the card: float32
+    outputs (TF32 off) within 1e-5 of each other, and each one's bf16
+    time by CUDA events at the stems' published shapes (64 filters)."""
+    import torch
+
+    from k8s_device_plugin_tpu_torch.ops.s2d import (
+        direct_conv,
+        space_to_depth_conv,
+    )
+
+    torch.backends.cudnn.benchmark = True
+    out = {}
+    for label, batch, taps, stride, pad in CONV_STEMS:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn(batch, 3, 224, 224, device="cuda", generator=gen
+                        ).contiguous(memory_format=torch.channels_last)
+        w = torch.randn(64, 3, taps, taps, device="cuda", generator=gen) \
+            * (3 * taps * taps) ** -0.5
+        with _no_tf32():
+            err = _rel_err(space_to_depth_conv(x, w, stride, pad),
+                           direct_conv(x, w, stride, pad))
+        if err > 1e-5:
+            raise AssertionError(f"convnets: stem {label} s2d != direct: "
+                                 f"{err}")
+        xb = x.to(torch.bfloat16)
+        out[label] = {
+            "input": [batch, 224, 224, 3], "taps": taps, "stride": stride,
+            "fp32_rel_err": err,
+            "direct_ms": cuda_ms(lambda: direct_conv(xb, w, stride, pad)),
+            "s2d_ms": cuda_ms(
+                lambda: space_to_depth_conv(xb, w, stride, pad))}
+    return out
+
+
+def phase_convnets(counters) -> dict:
+    """The conv workloads on the card (models/alexnet.py, resnet.py,
+    mobilenet.py, inception.py, ops/s2d.py): float32 card = CPU, the
+    example pod's command, the published shapes, the flagship forward,
+    two profiles and the two stems. The conv path launches none of the
+    port's kernels: every count stays 0."""
+    import torch
+
+    t0 = time.perf_counter()
+    for c in counters:
+        c.launches = 0
+    line = {"phase": "convnets", "ok": True,
+            "exactness": _conv_exactness(), "pod": _conv_pod(),
+            "shapes": _conv_shapes(), "forward": _conv_forward(),
+            "profiles": {f"{name}_b{batch}": _conv_profile(name, batch)
+                         for name, batch in CONV_PROFILES},
+            "stems": _conv_stems()}
+    line["launches"] = {c.name: c.launches for c in counters}
+    if any(line["launches"].values()):
+        raise AssertionError(f"convnets: a port kernel launched: "
+                             f"{line['launches']}")
+    torch.cuda.empty_cache()
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2822,6 +3240,7 @@ def main() -> int:
     for s in bwd_summaries:
         s["launches"] = launches[s["name"]]
     _jline(phase_train_profile())
+    _jline(phase_convnets([*_train_counters(), *paged_counters[1:]]))
     print(smi_line(), flush=True)
     _jline({"kernels": [summary, *bwd_summaries, paged_summary]})
     _jline({"ok": True, "device": {

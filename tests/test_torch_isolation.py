@@ -9,8 +9,8 @@ the list. models/handoff.py left it when its bundles learned to carry
 bfloat16 without ``ml_dtypes``: every definition of it but those is
 still the reference's (HANDOFF_CHANGED, HANDOFF_ADDED). PORTED lists
 the modules rewritten for the port whose reference imports jax
-(models/compile_cache.py, models/moe.py): walked like the rest, and
-keeping the reference's public names.
+(models/compile_cache.py, models/moe.py, ops/s2d.py and the four conv
+models): walked like the rest, and keeping the reference's public names.
 """
 
 import ast
@@ -39,7 +39,29 @@ PORTED = {"models/compile_cache.py": ("CACHE_VERSION",
                                       "CompileCache", "backend_fingerprint",
                                       "cache_dir_from_env",
                                       "max_bytes_from_env"),
-          "models/moe.py": ("MoEConfig", "MoELayer", "is_expert_weight")}
+          "models/moe.py": ("MoEConfig", "MoELayer", "is_expert_weight"),
+          "ops/s2d.py": ("direct_conv", "space_to_depth_conv"),
+          "models/alexnet.py": ("NUM_CLASSES", "IMAGE_SIZE", "AlexNet",
+                                "_stem_direct", "_stem_space_to_depth",
+                                "init_params", "forward", "loss_fn",
+                                "make_train_step", "synthetic_batch",
+                                "benchmark", "main"),
+          "models/resnet.py": ("NUM_CLASSES", "IMAGE_SIZE", "STAGE_SIZES",
+                               "_stem_direct", "_stem_space_to_depth",
+                               "Bottleneck", "ResNet", "tiny_model",
+                               "init_variables", "loss_fn",
+                               "make_train_step", "synthetic_batch",
+                               "benchmark", "main"),
+          "models/mobilenet.py": ("NUM_CLASSES", "IMAGE_SIZE", "V2_BLOCKS",
+                                  "_round_channels", "InvertedResidual",
+                                  "MobileNetV2", "tiny_model",
+                                  "init_variables", "loss_fn",
+                                  "make_train_step", "benchmark", "main"),
+          "models/inception.py": ("NUM_CLASSES", "IMAGE_SIZE", "ConvBN",
+                                  "InceptionA", "InceptionB", "InceptionC",
+                                  "InceptionD", "InceptionE", "InceptionV3",
+                                  "init_variables", "make_train_step",
+                                  "benchmark", "main")}
 # models/handoff.py: the definitions that differ from the reference's
 # (bfloat16 held as tagged 16-bit words) and those the port adds.
 HANDOFF_CHANGED = {"_np_dtype", "PageBlockBundle.to_bytes"}
@@ -91,10 +113,28 @@ def test_ported_module_is_walked_and_keeps_the_reference_names(rel):
     path = os.path.join(PORT, rel)
     assert path in _port_sources()
     assert [r for r, _ in _imported_roots(path) if r in FORBIDDEN] == []
-    ref = _definitions(os.path.join(REF, rel))
-    port = _definitions(path)
+    ref = _module_names(os.path.join(REF, rel))
+    port = _module_names(path)
     for name in PORTED[rel]:
         assert name in ref and name in port, name
+
+
+def _module_names(path):
+    """The names a module binds at its top level: its definitions,
+    annotated assignments (``V2_BLOCKS: Tuple[...] = ...``) and the names
+    its imports bind (the port's resnet.py re-exports the AlexNet
+    harness's ``make_train_step``, as the reference's inception takes
+    resnet's ``loss_fn``)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = set(_definitions(path))
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+        elif isinstance(node, ast.AnnAssign):
+            names.add(ast.unparse(node.target))
+    return names
 
 
 def test_atomic_write_bytes_is_the_references():
