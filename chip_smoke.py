@@ -134,6 +134,34 @@ exits non-zero without a result:
   attention.
 - ``train_profile``: torch.profiler over one flagship training step:
   device busy time, idle share, the largest kernels, B1/B3/B4's share.
+- ``train_parallel``: sharded training (parallel/, the sharded
+  ``make_sharded_train_step`` and the trainer's mesh) over 4 ranks that
+  share the one card: gloo, since NCCL refuses two ranks on one GPU,
+  with point-to-point and all-to-all tensors staged through host memory
+  (so its speed is not a result). The kernels are built in this process
+  first; parallel/launch.py spawns the ranks, each printing its backend,
+  device and staged bytes. Ring attention (causal and not) and Ulysses
+  over ``sp4`` at the flagship attention width ``[2, 2048, 8, 128]`` and
+  the trainer default's d = 64, bf16 and float32: output, LSE and
+  dQ/dK/dV gathered whole against the one-device ``FlashAttention`` and
+  the plain version (RING_TOL), and each rank's B1/B3/B4 launches by the
+  ring's formulas (rank r of a causal ring: r + 1 of each; non-causal:
+  4; Ulysses: 1). One step of the flagship width (2 layers, float32,
+  batch 2) on ``sp4`` ring, ``sp4`` Ulysses, ``dp2 x tp2``, ``sp2 x
+  tp2`` and ``dp2 x ep2`` with 4 experts: loss and every gathered
+  gradient against the one-device step from the same weights and batch
+  (TRAIN_GRAD_TOL), launches per layer by the same formulas, seconds of
+  a second step beside the one-device step's. Then the trainer's own
+  command, ``python -m torch.distributed.run --standalone
+  --nproc-per-node 4 -m k8s_device_plugin_tpu_torch.models.train
+  --steps 3 --mesh-axes dp,sp,tp --checkpoint-dir <dir>
+  --checkpoint-every 3`` at the
+  ``LMConfig()`` default (bf16), and one rank (in this process) with
+  ``--steps 5`` that resumes from that directory: its losses within
+  TRAINER_BF16_TOL (absolute) of the one-device trainer's; and two
+  controls that this tolerance must see: the losses a 4-rank run that
+  never stepped its optimizer, and a resume that restored nothing,
+  would log.
 
 - ``convnets``: the conv workloads (models/alexnet.py, resnet.py,
   mobilenet.py, inception.py; ops/s2d.py's stems). One train step of
@@ -2769,6 +2797,282 @@ def phase_train_profile() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# train_parallel: 4 ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+PARALLEL_WORLD = 4
+# (name, [b, s, h, d]): the flagship training attention and the trainer
+# default's head dim
+PARALLEL_ATTN_SIZES = (("flagship", (2, 2048, 8, 128)),
+                       ("trainer_d64", (2, 2048, 8, 64)))
+PARALLEL_ATTN_KINDS = (("ring", True), ("ring", False), ("ulysses", True))
+# Sharded attention against the one-device FlashAttention and the plain
+# version, max |err| / max |ref| of out, lse, dq, dk, dv. float32: the
+# ring's float32 merge and block sums against one pass. bfloat16: the
+# kernels' own bf16 bars (TOL, BWD_TOL) cover the plain version; against
+# the one-device kernels the ring rounds O once after its float32 merge
+# and sums bf16 block gradients, a few bf16 ulps.
+RING_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# (name, axes, shape, sp_impl, experts): the step layouts
+PARALLEL_STEPS = (
+    ("sp4_ring", ("sp",), (4,), "ring", 0),
+    ("sp4_ulysses", ("sp",), (4,), "ulysses", 0),
+    ("dp2_tp2", ("dp", "tp"), (2, 2), "ring", 0),
+    ("sp2_tp2_ring", ("sp", "tp"), (2, 2), "ring", 0),
+    ("dp2_ep2_moe", ("dp", "ep"), (2, 2), "ring", 4),
+)
+PARALLEL_STEP_BATCH = 2
+# The trainer's bf16 losses (logged to 4 decimals) against the one-device
+# trainer's, absolute: a small share of one step's fall in the loss, so
+# that a 4-rank run that never stepped its optimizer, or a resume that
+# restored nothing, lies outside it (the controls of _trainer_controls).
+TRAINER_BF16_TOL = 1e-3
+
+
+def expected_launches(impl: str, causal: bool, sp_rank: int,
+                      sp: int) -> int:
+    """B1 (and each of B3, B4) launches of one attention call on the rank
+    at ``sp_rank`` of an sp ring of ``sp``: r + 1 on a causal ring, sp on
+    a non-causal one, one for Ulysses or without sp."""
+    if impl == "ulysses" or sp == 1:
+        return 1
+    return sp_rank + 1 if causal else sp
+
+
+def _check_rank_launches(what, ranks, want_fn):
+    for rank, res in enumerate(ranks):
+        want = want_fn(res)
+        if any(n != want for n in res["launches"].values()):
+            raise AssertionError(f"train_parallel: {what}: rank {rank} "
+                                 f"launched {res['launches']}, want {want}")
+
+
+def _launches_by_rank(ranks) -> dict:
+    """{kernel: [its launches on rank 0, 1, ...]} from each kernel's own
+    counter."""
+    return {name: [r["launches"][name] for r in ranks]
+            for name in ranks[0]["launches"]}
+
+
+def _parallel_attention(launch, workers) -> dict:
+    cases = []
+    for size_name, size in PARALLEL_ATTN_SIZES:
+        for dtype in ("bfloat16", "float32"):
+            for impl, causal in PARALLEL_ATTN_KINDS:
+                cases.append(dict(
+                    name=f"{size_name}_{dtype}_{impl}_"
+                         f"{'causal' if causal else 'full'}",
+                    impl=impl, causal=causal, axes=("sp",),
+                    shape=(PARALLEL_WORLD,), dtype=dtype, size=size,
+                    seed=len(cases)))
+    # workers.attention(cases, "cuda", compare=True) on every rank
+    ranks = launch.spawn(workers.attention, PARALLEL_WORLD, cases, "cuda",
+                         True, device="cuda", timeout=600)
+    out = {}
+    for case in cases:
+        per_rank = [r[case["name"]] for r in ranks]
+        _check_rank_launches(case["name"], per_rank, lambda r: expected_launches(
+            case["impl"], case["causal"], r["sp_rank"], PARALLEL_WORLD))
+        errors = per_rank[0]["errors"]
+        tol = RING_TOL[case["dtype"]]
+        worst = max(e["rel_err"] for against in errors.values()
+                    for e in against.values())
+        if not worst <= tol:
+            raise AssertionError(f"train_parallel: {case['name']}: {errors} "
+                                 f"(tol {tol})")
+        out[case["name"]] = {
+            "size": list(case["size"]), "tol": tol, "max_rel_err": worst,
+            "errors": {a: {n: e["rel_err"] for n, e in v.items()}
+                       for a, v in errors.items()},
+            "launches_by_rank": _launches_by_rank(per_rank),
+            "staged_bytes_by_rank": [r["staged_bytes"] for r in per_rank]}
+    return {"cases": out,
+            "ranks": [{"backend": r[cases[0]["name"]]["backend"],
+                       "device": r[cases[0]["name"]]["device"]}
+                      for r in ranks]}
+
+
+def _parallel_steps(launch, workers) -> dict:
+    import dataclasses
+
+    from k8s_device_plugin_tpu_torch.models import transformer
+
+    base = dataclasses.asdict(transformer.flagship_config())
+    base.update(num_layers=2, dtype="float32")
+    cases = [dict(name=name, axes=axes, shape=shape, sp_impl=impl,
+                  config=dict(base, num_experts=experts), seed=5,
+                  batch=PARALLEL_STEP_BATCH)
+             for name, axes, shape, impl, experts in PARALLEL_STEPS]
+    ranks = launch.spawn(workers.train_step, PARALLEL_WORLD, cases, "cuda",
+                         True, device="cuda", timeout=900)
+    out = {}
+    for case, (_, axes, shape, impl, _) in zip(cases, PARALLEL_STEPS):
+        per_rank = [r[case["name"]] for r in ranks]
+        sp = dict(zip(axes, shape)).get("sp", 1)
+        _check_rank_launches(case["name"], per_rank, lambda r: 2 * (
+            expected_launches(impl, True, r["sp_rank"], sp)))
+        one = per_rank[0]["one_device"]
+        if not (one["grad_max_rel_err"] <= TRAIN_GRAD_TOL
+                and one["loss_abs_err"] <= 1e-4):
+            raise AssertionError(f"train_parallel: {case['name']}: {one} "
+                                 f"(grad tol {TRAIN_GRAD_TOL}, loss 1e-4)")
+        if len({r["loss"] for r in per_rank}) != 1:
+            raise AssertionError(f"train_parallel: {case['name']}: ranks "
+                                 f"logged different losses "
+                                 f"{[r['loss'] for r in per_rank]}")
+        out[case["name"]] = {
+            "loss": per_rank[0]["loss"], "one_device_loss": one["loss"],
+            "loss_abs_err": one["loss_abs_err"],
+            "grad_max_rel_err": one["grad_max_rel_err"],
+            "grad_worst": one["grad_worst"], "grad_tol": TRAIN_GRAD_TOL,
+            "sharded_step_s": per_rank[0]["step_s"],
+            "one_device_step_s": one["step_s"],
+            "launches_by_rank": _launches_by_rank(per_rank),
+            "staged_bytes_by_rank": [r["staged_bytes"] for r in per_rank]}
+    return out
+
+
+def _trainer_losses(text: str) -> dict:
+    out = {int(s): float(v)
+           for s, v in re.findall(r"step (\d+) loss (\S+)", text)}
+    final = re.findall(r"final loss (\S+)", text)
+    if final:
+        out["final"] = float(final[-1])
+    return out
+
+
+def _trainer_in_process(argv: list) -> list:
+    """models/train.main(argv) in this process; its log lines."""
+    from k8s_device_plugin_tpu_torch.models import train as trainer
+
+    handler = _Records()
+    logger = logging.getLogger("tpu-train")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        if trainer.main(argv) != 0:
+            raise AssertionError(f"train_parallel: trainer {argv} failed")
+    finally:
+        logger.removeHandler(handler)
+    return handler.lines
+
+
+def _parallel_trainer() -> dict:
+    """The trainer's command at 4 ranks (torchrun), then one rank (this
+    process) that resumes from its directory, against the one-device
+    trainer."""
+    import shutil
+
+    ckpt = os.path.join(HERE, "build", "train_parallel_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": HERE, "OMP_NUM_THREADS": "1"}
+    flags = ["--mesh-axes", "dp,sp,tp", "--checkpoint-dir", ckpt,
+             "--checkpoint-every", "3"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(PARALLEL_WORLD), "-m",
+         "k8s_device_plugin_tpu_torch.models.train", *flags, "--steps", "3"],
+        env=env, cwd=HERE, capture_output=True, text=True, timeout=600)
+    text = proc.stdout + proc.stderr
+    with open(os.path.join(HERE, "build", "train_parallel_world4.log"),
+              "w") as f:
+        f.write(text)
+    if proc.returncode != 0:
+        raise AssertionError(f"train_parallel: the 4-rank trainer exited "
+                             f"{proc.returncode}:\n{text[-4000:]}")
+    world4 = {"wall_s": time.perf_counter() - t0,
+              "losses": _trainer_losses(text),
+              "log": [ln.split(" ", 3)[-1] for ln in text.splitlines()
+                      if "tpu-train" in ln or "tpu-parallel" in ln]}
+    t0 = time.perf_counter()
+    lines = _trainer_in_process(flags + ["--steps", "5"])
+    resume = {"wall_s": time.perf_counter() - t0,
+              "losses": _trainer_losses("\n".join(lines)), "log": lines}
+    if "resumed from checkpoint step 2" not in lines:
+        raise AssertionError(f"train_parallel: no resume: {lines}")
+    want3, want5 = (_trainer_losses("\n".join(_trainer_in_process(
+        ["--steps", str(n)]))) for n in (3, 5))
+    pairs = [("world4 step 0", world4["losses"].get(0), want3[0]),
+             ("world4 final", world4["losses"].get("final"),
+              want3["final"]),
+             ("resumed final", resume["losses"].get("final"),
+              want5["final"])]
+    for what, got, want in pairs:
+        if got is None or not abs(got - want) <= TRAINER_BF16_TOL:
+            raise AssertionError(f"train_parallel: trainer {what} loss {got} "
+                                 f"vs one device {want} (abs tol "
+                                 f"{TRAINER_BF16_TOL})")
+    controls = _trainer_controls(want3["final"], want5["final"])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"config": "LMConfig()",
+            "runs": {"world4": world4, "world1_resume": resume},
+            "one_device": {"steps3": want3, "steps5": want5},
+            "tol": TRAINER_BF16_TOL,
+            "compared": [[w, g, x] for w, g, x in pairs],
+            "controls": controls}
+
+
+def _trainer_controls(final3: float, final5: float) -> dict:
+    """The losses the trainer check would read at two faults, from the
+    one-device trainer's init and batches: the step-2 loss at the
+    initial weights (a 4-rank run whose optimizer never stepped) and
+    the step-4 loss after steps 3 and 4 from the initial weights (a
+    resume that restored nothing). Each must differ from the one-device
+    trainer's by more than TRAINER_BF16_TOL, or the check could not see
+    that fault."""
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models import train as trainer
+    from k8s_device_plugin_tpu_torch.models import transformer
+
+    cfg = transformer.LMConfig()
+    batch = trainer.build_arg_parser().parse_args([]).batch_size
+    step, init = transformer.make_train_step(cfg, "cuda")
+    model, opt = init(0)
+
+    def tokens(s):
+        return trainer.step_tokens(s, batch, cfg.max_seq_len,
+                                   cfg.vocab_size).to("cuda")
+
+    with torch.no_grad():
+        no_step = float(transformer.loss_fn(model, tokens(2)))
+    for s in (3, 4):
+        fresh = float(step(model, opt, tokens(s)))
+    out = {"no_optimizer_step": {"loss": no_step, "want": final3,
+                                 "abs_diff": abs(no_step - final3)},
+           "resume_restored_nothing": {"loss": fresh, "want": final5,
+                                       "abs_diff": abs(fresh - final5)}}
+    del model, opt
+    torch.cuda.empty_cache()
+    for what, c in out.items():
+        if not c["abs_diff"] > TRAINER_BF16_TOL:
+            raise AssertionError(f"train_parallel: the trainer tolerance "
+                                 f"{TRAINER_BF16_TOL} cannot see {what}: "
+                                 f"{c}")
+    return out
+
+
+def phase_train_parallel() -> dict:
+    """Sharded training over 4 ranks sharing the card (gloo): ring and
+    Ulysses attention, the sharded step in five layouts, the trainer's
+    4-rank command and a one-rank resume."""
+    from k8s_device_plugin_tpu_torch.ops import _build
+    from k8s_device_plugin_tpu_torch.parallel import launch, workers
+
+    t0 = time.perf_counter()
+    for lib in ("flash_fwd", "flash_bwd"):
+        _build.load(lib)  # built here, so the ranks only open them
+    line = {"phase": "train_parallel", "ok": True, "world": PARALLEL_WORLD,
+            "note": "gloo over one shared card: speeds are not results"}
+    line["attention"] = _parallel_attention(launch, workers)
+    line["steps"] = _parallel_steps(launch, workers)
+    line["trainer"] = _parallel_trainer()
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
+# ---------------------------------------------------------------------------
 # convnets: AlexNet, ResNet-50, MobileNetV2, InceptionV3
 # ---------------------------------------------------------------------------
 
@@ -2930,9 +3234,20 @@ def _conv_pod() -> dict:
     a process: the wall from spawn to exit, the keys and numbers it
     prints, and a final loss below the first step's (the first step's
     loss: benchmark(128, 1 step, no warm-up) in this process, the same
-    seeded init and batch)."""
+    seeded init and batch). The pod stands for a fresh pod with the card
+    to itself, so this process first hands back what its allocator keeps
+    cached: with little memory free, cuDNN's autotuner in the pod picks
+    other algorithms, and the pod's chaotic trajectory (one fixed batch
+    of random labels) can end non-finite (ROADMAP C7)."""
+    import gc
+
+    import torch
+
     from k8s_device_plugin_tpu_torch.models import alexnet
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (HERE, env.get("PYTHONPATH")) if p)
@@ -2954,7 +3269,7 @@ def _conv_pod() -> dict:
         raise AssertionError(f"convnets: the pod's loss did not fall: "
                              f"first {first}, final {result['final_loss']}")
     return {"argv": CONV_POD_ARGV, "process_wall_s": wall,
-            "first_loss": first, **result}
+            "card_free_bytes_at_spawn": free, "first_loss": first, **result}
 
 
 def _conv_shapes() -> list:
@@ -3240,6 +3555,12 @@ def main() -> int:
     for s in bwd_summaries:
         s["launches"] = launches[s["name"]]
     _jline(phase_train_profile())
+    parallel = phase_train_parallel()
+    _jline(parallel)
+    for s in (summary, *bwd_summaries):
+        s["launches_train_parallel"] = {
+            name: step["launches_by_rank"][s["name"]]
+            for name, step in parallel["steps"].items()}
     _jline(phase_convnets([*_train_counters(), *paged_counters[1:]]))
     print(smi_line(), flush=True)
     _jline({"kernels": [summary, *bwd_summaries, paged_summary]})

@@ -6,9 +6,20 @@ auxiliary loss, and the reference's masked dense dispatch: every expert
 runs on every token and the combine keeps the routed expert's output
 times its gate, so shapes stay static and no token is dropped. The
 products are plain ``torch.einsum`` calls, as the reference leaves them
-to XLA; no kernel of the port runs here. Sharding the stacked expert
-weights over an ``ep`` mesh axis (the reference's ``shard_moe_params``)
-waits for the port's mesh (ROADMAP A8).
+to XLA; no kernel of the port runs here.
+
+Under a sharded model's plan (models/transformer.py ``ShardPlan``) the
+stacked expert weights split over ``ep``, the rule the reference's
+``shard_moe_params`` and ``shard_params_for_tp`` share
+(``is_expert_weight``; parallel/sharding.py): each ep rank holds ``E /
+ep`` experts and runs the dense dispatch for those only. ``x`` and the
+routing weights enter through ``comm.copy_to_group(ep)``, the combined
+output leaves through ``comm.reduce_from_group(ep)``. ``density`` and
+``density_proxy`` are means over the **global** batch, as under GSPMD:
+with the batch or sequence split (dp, sp) each is averaged over the
+data group before their product (the mean of per-rank products would be
+another number); the proxy's average passes its gradient through
+unchanged, so the gradients summed over the group are the whole one.
 
 Numerics follow the reference's flax module, which the tests hold this
 one to:
@@ -37,6 +48,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from k8s_device_plugin_tpu_torch.parallel import comm
+
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
@@ -53,7 +66,7 @@ class MoELayer(nn.Module):
     is float32 in both (the training layout's ``param_dtype`` is float32
     too)."""
 
-    def __init__(self, config: MoEConfig, param_dtype=None):
+    def __init__(self, config: MoEConfig, param_dtype=None, plan=None):
         super().__init__()
         from k8s_device_plugin_tpu_torch.models.transformer import (
             Dense,
@@ -61,11 +74,19 @@ class MoELayer(nn.Module):
         )
 
         cfg = self.config = config
+        split = plan is not None and plan.split["experts"]
+        # the ep group the experts are split over and the data group
+        # the batch statistics are averaged over (None: not split)
+        self.ep = plan.ep if split else None
+        self.data = plan.data if plan is not None else None
+        local = plan.width(cfg.num_experts, "experts", "ep") if split \
+            else cfg.num_experts
+        self.first = plan.mesh.coord("ep") * local if split else 0
         self.router = Dense(cfg.embed_dim, cfg.num_experts, False,
                             torch.float32, param_dtype)
-        self.wi = _param((cfg.num_experts, cfg.embed_dim, cfg.mlp_dim),
+        self.wi = _param((local, cfg.embed_dim, cfg.mlp_dim),
                          cfg.dtype, param_dtype)
-        self.wo = _param((cfg.num_experts, cfg.mlp_dim, cfg.embed_dim),
+        self.wo = _param((local, cfg.mlp_dim, cfg.embed_dim),
                          cfg.dtype, param_dtype)
 
     def forward(self, x, with_aux: bool = True):
@@ -83,12 +104,22 @@ class MoELayer(nn.Module):
             # probability per expert.
             density = mask.mean(dim=(0, 1))
             density_proxy = probs.mean(dim=(0, 1))
+            n = comm.group_size(self.data)
+            if n > 1:
+                density = comm.all_reduce(density, self.data) / n
+                density_proxy = comm.reduce_from_group(density_proxy,
+                                                       self.data) / n
             aux = cfg.num_experts * torch.sum(density * density_proxy)
         dt = cfg.dtype
-        h = torch.einsum("bsd,edf->bsef", x.to(dt), self.wi.to(dt))
+        local = self.wi.shape[0]
+        routed = comm.copy_to_group(mask * gate, self.ep)
+        routed = routed[..., self.first:self.first + local]
+        x_in = comm.copy_to_group(x, self.ep)
+        h = torch.einsum("bsd,edf->bsef", x_in.to(dt), self.wi.to(dt))
         h = F.gelu(h, approximate="tanh")
         out = torch.einsum("bsef,efd->bsed", h, self.wo.to(dt))
-        combined = torch.einsum("bsed,bse->bsd", out, (mask * gate).to(dt))
+        combined = torch.einsum("bsed,bse->bsd", out, routed.to(dt))
+        combined = comm.reduce_from_group(combined, self.ep)
         return combined.to(x.dtype), aux
 
 

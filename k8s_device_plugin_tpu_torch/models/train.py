@@ -1,26 +1,35 @@
-"""LM training with checkpoint/resume on one device.
+"""Distributed LM training with checkpoint/resume.
 
 The counterpart of ``k8s_device_plugin_tpu/models/train.py``: the same
 flags plus ``--device``, the same loop, log lines and preemption
-contract, over ``transformer.make_train_step`` on one device.
+contract, over ``transformer.make_sharded_train_step`` on the mesh of
+the ranks a launcher started (parallel/mesh.py ``mesh_from_env``).
 
-- ``--mesh-axes`` takes axes of size 1 on one device (``dp``, ``tp``);
-  ``sp`` and ``ep`` (sequence parallelism, expert sharding) raise,
-  pointing at ROADMAP A8. ``--experts N`` trains switch-MoE layers
-  (models/moe.py) on the one device, their aux loss in the objective.
-  ``--sp-impl`` is accepted for the reference's command lines and does
-  nothing without ``sp``.
+- ``--mesh-axes`` takes any of ``dp``, ``sp``, ``tp`` and ``ep``,
+  factored over the world size as the reference factors its devices
+  (largest innermost); ``--sp-impl`` picks ring attention or Ulysses
+  for ``sp``. ``--experts N`` trains switch-MoE layers (models/moe.py),
+  split over ``ep``; N must divide over it (logged, exit 1). Run under
+  ``python -m torch.distributed.run --nproc-per-node N -m
+  k8s_device_plugin_tpu_torch.models.train ...``; with no launcher it
+  trains on one device. Rank 0 logs; the others log warnings only.
+- Every rank draws the same global batch from ``step_tokens`` and takes
+  its slice, so a sharded run sees the one-device run's data stream.
+  Per-step tokens come from a ``torch.Generator`` seeded from ``(1,
+  step)``, so a resumed run continues it where it stopped, as
+  ``jax.random.fold_in`` does in the reference. The draws differ from
+  ``jax.random``'s.
 - Checkpoints are the port's own, not orbax's: under ``--checkpoint-dir``
   one directory per step holding ``state.pt`` (``{"params", "opt",
-  "step"}`` via ``torch.save``), written under a temporary name and
-  renamed, the two newest kept; a rerun resumes at latest + 1 with the
-  optimizer state restored onto the device.
+  "step"}`` via ``torch.save``, parameters and AdamW moments gathered
+  whole: the one-device layout), written by rank 0 under a temporary
+  name and renamed, the two newest kept. A rerun at any world size
+  resumes at latest + 1, each rank restoring its slice, as orbax
+  restores onto a new sharding.
 - SIGTERM (armed only with a checkpoint dir) finishes the current step,
-  checkpoints it and exits 0, as the reference does.
-- Per-step tokens come from a ``torch.Generator`` seeded from
-  ``(1, step)``, so a resumed run continues the data stream where it
-  stopped, as ``jax.random.fold_in`` does in the reference. The draws
-  differ from ``jax.random``'s.
+  checkpoints it and exits 0, as the reference does. The flag is reduced
+  with MAX over the world every step, so a signal to any rank stops
+  every rank at the same step.
 
 Run: ``python -m k8s_device_plugin_tpu_torch.models.train --steps 100
 --checkpoint-dir /ckpt`` (``--tiny --device cpu`` for a CPU smoke run).
@@ -38,6 +47,7 @@ import threading
 import time
 
 import torch
+import torch.distributed as dist
 
 log = logging.getLogger("tpu-train")
 
@@ -52,31 +62,27 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=50)
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--experts", type=int, default=0,
-                   help="use switch-MoE MLPs with this many experts (one "
-                   "device; the ep axis is not ported yet)")
+                   help="use switch-MoE MLPs with this many experts "
+                   "(shard over an 'ep' mesh axis)")
     p.add_argument("--mesh-axes", default="dp,tp",
-                   help="comma list from dp,sp,tp,ep; one device takes "
-                   "dp and tp of size 1 (sp, ep: not ported yet)")
+                   help="comma list from dp,sp,tp,ep (sp enables sequence "
+                   "parallelism, ep shards experts)")
     p.add_argument("--sp-impl", default="ring", choices=("ring", "ulysses"),
-                   help="sequence-parallel attention (only with sp)")
+                   help="sequence-parallel attention: ring (K/V ring "
+                   "stream) or ulysses (all-to-all head/seq re-shard)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' to ask "
                    "for the CPU)")
     return p
 
 
-def mesh_shape(mesh_axes: str) -> dict:
-    """The one-device mesh of ``--mesh-axes``: every axis of size 1.
-    ``sp`` and ``ep`` need several devices and raise."""
-    axes = tuple(a.strip() for a in mesh_axes.split(",") if a.strip())
+def mesh_axes(arg: str) -> tuple:
+    """The axes of ``--mesh-axes``, each one of dp, sp, tp, ep."""
+    axes = tuple(a.strip() for a in arg.split(",") if a.strip())
     for a in axes:
         if a not in ("dp", "sp", "tp", "ep"):
             raise ValueError(f"unknown mesh axis {a!r} (dp, sp, tp, ep)")
-        if a in ("sp", "ep"):
-            raise NotImplementedError(
-                f"mesh axis {a!r} is not ported to the PyTorch package yet "
-                "(ROADMAP.md, queue A, item A8: parallelism)")
-    return {a: 1 for a in axes}
+    return axes
 
 
 class Checkpoints:
@@ -128,27 +134,48 @@ def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname).1s %(name)s %(message)s")
+    axes = mesh_axes(args.mesh_axes)
 
+    from k8s_device_plugin_tpu_torch.parallel.mesh import mesh_from_env
+
+    mesh = mesh_from_env(axes, args.device)
+    try:
+        return _train(args, mesh)
+    finally:
+        if mesh.world > 1 and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, mesh) -> int:
     from k8s_device_plugin_tpu_torch.models import transformer
-    from k8s_device_plugin_tpu_torch.utils.device import resolve_device
+    from k8s_device_plugin_tpu_torch.parallel import comm
 
-    shape = mesh_shape(args.mesh_axes)
-    device = resolve_device(args.device)
+    if mesh.rank != 0:
+        log.setLevel(logging.WARNING)
+    device = mesh.device
     config = transformer.LMConfig.tiny(num_experts=args.experts) \
         if args.tiny else transformer.LMConfig(num_experts=args.experts)
-    log.info("training on mesh %s (%s)", shape, device)
+    log.info("training on mesh %s (%s)", mesh.shape, device)
+    if args.experts and "ep" in mesh.shape:
+        ep = mesh.shape["ep"]
+        if args.experts % ep:
+            log.error(
+                "--experts %d is not divisible by the ep mesh axis (%d); "
+                "expert weights cannot shard evenly", args.experts, ep,
+            )
+            return 1
 
-    step_fn, init_fn = transformer.make_train_step(config, device)
-    model, opt = init_fn(0)
+    step_fn, init_fn = transformer.make_sharded_train_step(
+        mesh, config, sp_impl=args.sp_impl)
+    model, opt, _ = init_fn(0, batch=args.batch_size)
 
     start_step = 0
     ckptr = Checkpoints(args.checkpoint_dir) if args.checkpoint_dir else None
     if ckptr:
         latest = ckptr.latest_step()
         if latest is not None:
-            state = ckptr.restore(latest, device)
-            model.load_state_dict(state["params"])
-            opt.load_state_dict(state["opt"])
+            transformer.load_whole_state(model, opt,
+                                         ckptr.restore(latest, device))
             start_step = latest + 1
             log.info("resumed from checkpoint step %d", latest)
 
@@ -166,9 +193,21 @@ def main(argv=None) -> int:
         signal.signal(signal.SIGTERM, _on_term)
 
     def save(step):
-        ckptr.save(step, {"params": model.state_dict(),
-                          "opt": opt.state_dict(), "step": step})
+        # a collective: every rank gathers, rank 0 writes
+        state = transformer.whole_state(model, opt)
+        if mesh.rank == 0:
+            ckptr.save(step, {**state, "step": step})
+        if mesh.world > 1:
+            dist.barrier()
         log.info("checkpointed step %d", step)
+
+    def stop_now() -> bool:
+        """The SIGTERM flag of any rank (a MAX over the world; one rank
+        reads its own, with no device round trip)."""
+        if mesh.world == 1:
+            return preempted.is_set()
+        flag = torch.tensor([float(preempted.is_set())], device=device)
+        return bool(comm.all_reduce(flag, dist.group.WORLD, op="max").item())
 
     t0 = time.perf_counter()
     loss = None
@@ -178,7 +217,7 @@ def main(argv=None) -> int:
         loss = step_fn(model, opt, tokens)
         if step % 10 == 0:
             log.info("step %d loss %.4f", step, float(loss))
-        if preempted.is_set():
+        if ckptr and stop_now():
             save(step)
             log.info("preempted at step %d; exiting for restart", step)
             break

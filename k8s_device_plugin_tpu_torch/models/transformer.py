@@ -10,8 +10,28 @@ per-row block tables: prefill chunks and decode steps), and training:
 ``train_flops_per_step``, ``benchmark_train`` and the
 ``lm-train-benchmark`` CLI (``main``). ``num_experts > 0`` swaps every
 block's MLP for a switch-MoE layer (models/moe.py) whose aux loss joins
-``loss_fn``; sequence and expert parallelism wait for the port's mesh
-(ROADMAP.md, A8).
+``loss_fn``.
+
+The sharded model and step (the reference's :210-270 and :755-822):
+``DecoderLM(cfg, param_dtype, plan=ShardPlan(...))`` is one rank's part
+of the model on a parallel/mesh.py mesh, and ``make_sharded_train_step``
+trains it over ``dp x sp x tp x ep``:
+
+- tp (Megatron-style): a rank holds its q heads and its slice of the
+  MLP's features; activations enter the split through
+  ``comm.copy_to_group`` and leave ``wo`` / ``down_proj`` through
+  ``comm.reduce_from_group`` (the biases of those two add after it).
+  Where the k/v heads do not divide over tp (GQA with tp > kv_heads),
+  K/V stay whole on every rank and each takes its heads' kv groups.
+- sp: a rank holds a block of the sequence, at global positions
+  ``coord_sp * s/P`` on (the learned table and RoPE alike); attention
+  runs as ring attention or Ulysses (parallel/) on B1, B3 and B4.
+- ep: a rank holds ``E / ep`` experts (models/moe.py).
+- the loss takes its targets from the global batch before slicing, so
+  the last token of block r predicts the first of block r + 1, and
+  divides each rank's sum by the global count; gradients are summed over
+  ``dp x sp`` in one flattened all-reduce (the f/g pair leaves every
+  replicated parameter's gradient whole on every tp and ep rank).
 
 Numerics follow flax's, since the tests hold this module to the
 reference's logits and gradients:
@@ -56,6 +76,9 @@ from torch.utils.checkpoint import checkpoint
 from k8s_device_plugin_tpu_torch.models.moe import MoEConfig, MoELayer
 from k8s_device_plugin_tpu_torch.ops.attention import flash_attention
 from k8s_device_plugin_tpu_torch.ops.paged_attention import paged_attention
+from k8s_device_plugin_tpu_torch.parallel import comm
+from k8s_device_plugin_tpu_torch.parallel.ring_attention import ring_attention
+from k8s_device_plugin_tpu_torch.parallel.ulysses import ulysses_attention
 from k8s_device_plugin_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -219,6 +242,53 @@ def new_paged_pool(config: LMConfig, pool_pages: int, page_tokens: int,
 # layers
 # ---------------------------------------------------------------------------
 
+class ShardPlan:
+    """What one rank of a mesh holds and runs in the sharded model and
+    step: the mesh, whether the sequence is split over ``sp``
+    (``seq_split``: ring attention or Ulysses, ``sp_impl``), which blocks
+    tp and ep split (``split``, parallel/sharding.py's rule), each
+    parameter's spec (``specs``, of the whole model), the batch slicer,
+    and the groups: ``tp``, ``ep``, ``sp``, and ``data`` (``dp x sp``
+    when the sequence is split, else ``dp``), over which gradients,
+    the loss and MoE's batch statistics are summed. On a mesh of one
+    rank it splits nothing and every group is None: the one-device
+    model."""
+
+    def __init__(self, mesh, config: LMConfig, use_ring: bool,
+                 sp_impl: str):
+        from k8s_device_plugin_tpu_torch.parallel import sharding
+
+        self.mesh = mesh
+        self.sp_impl = sp_impl
+        self.seq_split = bool(use_ring) and mesh.size("sp") > 1
+        self.split = sharding.splits(mesh, config)
+        with torch.device("meta"):
+            whole = DecoderLM(config, param_dtype=torch.float32)
+        self.specs = sharding.shard_params_for_tp(mesh, whole)
+        self.slicer = sharding.batch_sharding(mesh, seq_axis=self.seq_split)
+        self.tp = mesh.group("tp")
+        self.ep = mesh.group("ep")
+        self.sp = mesh.group("sp")
+        self.data = mesh.group("dp", "sp") if self.seq_split \
+            else mesh.group("dp")
+
+    def width(self, n: int, block: str, axis: str = "tp") -> int:
+        """A width of ``n`` on this rank: ``n / size`` where ``block`` is
+        split over ``axis``."""
+        return n // self.mesh.size(axis) if self.split[block] else n
+
+    def reduce_grads(self, model: nn.Module) -> None:
+        """Sum every gradient over the data group, in one flattened
+        buffer (the training layout's parameters are all float32)."""
+        if comm.group_size(self.data) == 1:
+            return
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        flat = comm.all_reduce(torch.cat([g.reshape(-1) for g in grads]),
+                               self.data)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+
+
 def _param(shape, dtype, param_dtype, fill=torch.empty) -> nn.Parameter:
     """A parameter in the serving layout (``param_dtype`` None: stored in
     the compute ``dtype``, no gradient) or the training one (stored in
@@ -240,8 +310,11 @@ class Dense(nn.Module):
         self.bias = (_param((out_features,), dtype, param_dtype, torch.zeros)
                      if bias else None)
 
-    def forward(self, x):
+    def forward(self, x, reduce_group=None):
+        """``reduce_group``: a split input dim's partial products are
+        summed over it (``comm.reduce_from_group``) before the bias."""
         y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        y = comm.reduce_from_group(y, reduce_group)
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
@@ -323,21 +396,39 @@ def _bhsd(x):
     return x.transpose(1, 2).contiguous()
 
 
+def _seq_offset(plan: ShardPlan | None, s: int) -> int:
+    """The global position of the first of a rank's ``s`` tokens (its
+    sp block's start; 0 without a plan)."""
+    return 0 if plan is None else plan.slicer.offset(s)
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg: LMConfig, param_dtype=None):
+    def __init__(self, cfg: LMConfig, param_dtype=None,
+                 plan: ShardPlan | None = None):
         super().__init__()
         self.cfg = cfg
+        self.plan = plan
         qkv_bias = cfg.use_bias or cfg.qkv_bias
         hd = cfg.head_dim
+        self.heads = plan.width(cfg.num_heads, "attn") if plan \
+            else cfg.num_heads
+        self.kv_heads = plan.width(cfg.kv_heads, "kv") if plan \
+            else cfg.kv_heads
+        # the tp group over which the q heads are split, or None; and
+        # whether K/V stay whole there (their heads do not divide)
+        self.tp = plan.tp if plan and plan.split["attn"] else None
+        self.kv_whole = self.tp is not None and not plan.split["kv"]
         dense = functools.partial(Dense, dtype=cfg.dtype,
                                   param_dtype=param_dtype)
-        self.wq = dense(cfg.embed_dim, cfg.num_heads * hd, qkv_bias)
-        self.wk = dense(cfg.embed_dim, cfg.kv_heads * hd, qkv_bias)
-        self.wv = dense(cfg.embed_dim, cfg.kv_heads * hd, qkv_bias)
-        self.wo = dense(cfg.num_heads * hd, cfg.embed_dim, cfg.use_bias)
+        self.wq = dense(cfg.embed_dim, self.heads * hd, qkv_bias)
+        self.wk = dense(cfg.embed_dim, self.kv_heads * hd, qkv_bias)
+        self.wv = dense(cfg.embed_dim, self.kv_heads * hd, qkv_bias)
+        self.wo = dense(self.heads * hd, cfg.embed_dim, cfg.use_bias)
 
     def forward(self, x, cache=None, layer: int = 0, prefill: bool = False,
                 pages=None):
+        if cache is None:
+            return self._full(x)
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim
@@ -346,20 +437,49 @@ class Attention(nn.Module):
         v = self.wv(x).view(b, s, cfg.kv_heads, hd)
         if pages is not None:
             out = self._paged_attention(q, k, v, cache, layer, pages)
-        elif cache is not None:
-            out = self._cached_attention(q, k, v, cache, layer, prefill)
         else:
-            if cfg.position == "rope":
-                cos, sin = rope_cos_sin(
-                    torch.arange(s, device=x.device), hd, cfg.rope_theta
-                )
-                q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+            out = self._cached_attention(q, k, v, cache, layer, prefill)
+        return self.wo(out.reshape(b, s, cfg.num_heads * hd))
+
+    def _full(self, x):
+        """The full-sequence causal forward of this rank's part: its heads
+        (tp) over its block of the sequence (sp: ring attention or
+        Ulysses). Without a plan, or on a mesh of one rank, that is every
+        head over the whole sequence, on B1 (B3 and B4 under autograd)."""
+        cfg, plan = self.cfg, self.plan
+        b, s, _ = x.shape
+        hd = cfg.head_dim
+        tp = self.tp
+        xf = comm.copy_to_group(x, tp)
+        q = self.wq(xf).view(b, s, self.heads, hd)
+        if not self.kv_whole:
+            k = self.wk(xf).view(b, s, self.kv_heads, hd)
+            v = self.wv(xf).view(b, s, self.kv_heads, hd)
+        else:
+            # The kv heads do not divide over tp: K/V are computed whole
+            # on every rank and enter the split through f (so their
+            # weights' gradients are whole), expanded to the q heads, and
+            # the rank keeps its own.
+            first = plan.mesh.coord("tp") * self.heads
+            n_rep = cfg.num_heads // cfg.kv_heads
+            k, v = (repeat_kv(comm.copy_to_group(w(x), tp).view(
+                b, s, cfg.kv_heads, hd), n_rep)[:, :, first:first + self.heads]
+                for w in (self.wk, self.wv))
+        if cfg.position == "rope":
+            pos = _seq_offset(plan, s) + torch.arange(s, device=x.device)
+            cos, sin = rope_cos_sin(pos, hd, cfg.rope_theta)
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        if plan is not None and plan.seq_split:
+            attn = ring_attention if plan.sp_impl == "ring" \
+                else ulysses_attention
+            out = attn(q, k, v, plan.sp, causal=True)
+        else:
             # The kernels read shared kv heads in place (GQA), so K/V go
             # in unexpanded; under autograd FlashAttention's backward
             # (B3, B4) returns their gradients unexpanded too.
             out = flash_attention(_bhsd(q), _bhsd(k), _bhsd(v),
                                   causal=True).transpose(1, 2)
-        return self.wo(out.reshape(b, s, cfg.num_heads * hd))
+        return self.wo(out.reshape(b, s, self.heads * hd), reduce_group=tp)
 
     def _cached_attention(self, q, k, v, cache: KVCache, layer: int,
                           prefill: bool):
@@ -459,41 +579,47 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: LMConfig, param_dtype=None):
+    def __init__(self, cfg: LMConfig, param_dtype=None,
+                 plan: ShardPlan | None = None):
         super().__init__()
         self.cfg = cfg
+        # the tp group over which the features are split, or None
+        self.tp = plan.tp if plan and plan.split["mlp"] else None
+        width = plan.width(cfg.mlp_dim, "mlp") if plan else cfg.mlp_dim
         dense = functools.partial(Dense, bias=cfg.use_bias, dtype=cfg.dtype,
                                   param_dtype=param_dtype)
-        self.wi = dense(cfg.embed_dim, cfg.mlp_dim)
+        self.wi = dense(cfg.embed_dim, width)
         if cfg.mlp_act == "swiglu":
-            self.wg = dense(cfg.embed_dim, cfg.mlp_dim)
-        self.down_proj = dense(cfg.mlp_dim, cfg.embed_dim)
+            self.wg = dense(cfg.embed_dim, width)
+        self.down_proj = dense(width, cfg.embed_dim)
 
     def forward(self, x):
+        x = comm.copy_to_group(x, self.tp)
         h = self.wi(x)
         if self.cfg.mlp_act == "swiglu":
             h = F.silu(self.wg(x)) * h
         else:
             # flax nn.gelu is the tanh approximation
             h = F.gelu(h, approximate="tanh")
-        return self.down_proj(h)
+        return self.down_proj(h, reduce_group=self.tp)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: LMConfig, param_dtype=None):
+    def __init__(self, cfg: LMConfig, param_dtype=None,
+                 plan: ShardPlan | None = None):
         super().__init__()
         trainable = param_dtype is not None
         self.ln1 = make_norm(cfg, trainable)
-        self.attn = Attention(cfg, param_dtype)
+        self.attn = Attention(cfg, param_dtype, plan)
         self.ln2 = make_norm(cfg, trainable)
         if cfg.num_experts > 0:
             self.moe = MoELayer(
                 MoEConfig(num_experts=cfg.num_experts,
                           embed_dim=cfg.embed_dim, mlp_dim=cfg.mlp_dim,
                           dtype=cfg.dtype),
-                param_dtype)
+                param_dtype, plan)
         else:
-            self.mlp = MLP(cfg, param_dtype)
+            self.mlp = MLP(cfg, param_dtype, plan)
 
     def forward(self, x, cache=None, layer: int = 0, prefill: bool = False,
                 pages=None, aux=None):
@@ -515,17 +641,20 @@ class Block(nn.Module):
 class DecoderLM(nn.Module):
     """The decoder LM. ``param_dtype=None`` is the serving layout
     (weights in ``cfg.dtype``, no gradients); ``torch.float32`` is
-    flax's training layout (module docstring)."""
+    flax's training layout (module docstring). With a ``plan`` it is one
+    rank's part of the sharded model (full-sequence forward only)."""
 
-    def __init__(self, cfg: LMConfig, param_dtype=None):
+    def __init__(self, cfg: LMConfig, param_dtype=None,
+                 plan: ShardPlan | None = None):
         super().__init__()
         self.cfg = cfg
+        self.plan = plan
         self.embed = _param((cfg.vocab_size, cfg.embed_dim), cfg.dtype,
                             param_dtype)
         if cfg.position == "learned":
             self.pos_embed = _param((cfg.max_seq_len, cfg.embed_dim),
                                     cfg.dtype, param_dtype)
-        self.layers = nn.ModuleList(Block(cfg, param_dtype)
+        self.layers = nn.ModuleList(Block(cfg, param_dtype, plan)
                                     for _ in range(cfg.num_layers))
         self.ln_f = make_norm(cfg, param_dtype is not None)
         if not cfg.tie_embeddings:
@@ -548,6 +677,10 @@ class DecoderLM(nn.Module):
         list, collects each MoE layer's aux loss."""
         cfg = self.cfg
         s = tokens.shape[1]
+        if cache is not None and self.plan is not None \
+                and self.plan.mesh.world > 1:
+            raise ValueError("a sharded DecoderLM runs the full-sequence "
+                             "forward only")
         # flax casts the table to cfg.dtype before the gather, so
         # repeated tokens' gradients sum in cfg.dtype too. Its gather is
         # jnp.take's fill mode: ids in [-vocab, 0) wrap, ids outside
@@ -563,7 +696,7 @@ class DecoderLM(nn.Module):
                 positions = torch.clamp(pages[1][:, None] + ar,
                                         max=cfg.max_seq_len - 1)
             elif cache is None:
-                positions = ar
+                positions = ar + _seq_offset(self.plan, s)
             else:
                 idx = cache.idx
                 base = idx if idx.dim() == 0 else idx[:, None]
@@ -654,6 +787,13 @@ def chunked_lm_loss(feats, head_kernel, targets, mask, num_chunks: int,
     The head kernel is cast to ``compute_dtype``, and the product then
     follows jnp's promotion: RMSNorm's float32 features times a bf16
     kernel compute in float32; LayerNorm's bf16 features stay bf16."""
+    return _chunked_loss_sum(feats, head_kernel, targets, mask, num_chunks,
+                             compute_dtype) / mask.sum().clamp_min(1.0)
+
+
+def _chunked_loss_sum(feats, head_kernel, targets, mask, num_chunks: int,
+                      compute_dtype=None):
+    """The masked sum of ``chunked_lm_loss`` (before the mean)."""
     _, s, _ = feats.shape
     if s % num_chunks:
         raise ValueError(f"seq {s} not divisible into {num_chunks} chunks")
@@ -667,7 +807,7 @@ def chunked_lm_loss(feats, head_kernel, targets, mask, num_chunks: int,
         total = total + checkpoint(
             _chunk_loss, feats[:, part], head_kernel, targets[:, part],
             mask[:, part], dtype, use_reentrant=False)
-    return total / mask.sum().clamp_min(1.0)
+    return total
 
 
 def loss_fn(model: DecoderLM, tokens, loss_chunks: int = 0):
@@ -675,26 +815,9 @@ def loss_fn(model: DecoderLM, tokens, loss_chunks: int = 0):
     cross-entropy of the float32 logits ``[:, :-1]``. ``loss_chunks > 0``
     switches to ``chunked_lm_loss`` (same numbers, O(S/chunks * vocab)
     peak logits memory). With experts, ``aux_loss_weight`` times the sum
-    of the layers' router aux losses is added, as the reference does."""
-    cfg = model.cfg
-    targets = torch.roll(tokens, -1, dims=1)
-    aux = [] if cfg.num_experts > 0 else None
-    if loss_chunks:
-        feats = model(tokens, return_features=True, aux=aux)
-        s = tokens.shape[1]
-        mask = (torch.arange(s, device=tokens.device) < s - 1).float()
-        kernel = model.embed.T if cfg.tie_embeddings \
-            else model.lm_head.kernel
-        base = chunked_lm_loss(feats, kernel, targets,
-                               mask.expand(tokens.shape), loss_chunks,
-                               compute_dtype=cfg.dtype)
-    else:
-        logits = model(tokens, aux=aux)
-        base = F.cross_entropy(logits[:, :-1].reshape(-1, cfg.vocab_size),
-                               targets[:, :-1].reshape(-1))
-    if aux is None:
-        return base
-    return base + cfg.aux_loss_weight * sum(aux)
+    of the layers' router aux losses is added, as the reference does.
+    ``sharded_loss_fn`` on the whole batch."""
+    return sharded_loss_fn(model, tokens, loss_chunks)[0]
 
 
 def default_optimizer(params) -> torch.optim.Optimizer:
@@ -707,9 +830,8 @@ def default_optimizer(params) -> torch.optim.Optimizer:
 
 def make_train_step(config: LMConfig, device=None, optimizer=None,
                     loss_chunks: int = 0):
-    """Single-device training step: the counterpart of the reference's
-    ``make_sharded_train_step`` on one device (the sharded dp x tp x sp
-    step waits for ROADMAP A8).
+    """Single-device training step: ``make_sharded_train_step`` over a
+    mesh of one rank.
 
     Returns ``(train_step, init_fn)``. ``init_fn(seed=0)`` builds the
     model in flax's training layout (float32 parameters) with seeded
@@ -718,22 +840,132 @@ def make_train_step(config: LMConfig, device=None, optimizer=None,
     runs loss, backward and one optimizer update in place and returns the
     detached loss. ``device`` is the card unless the caller asks for the
     CPU."""
-    device = resolve_device(device)
-    make_opt = optimizer or default_optimizer
+    from k8s_device_plugin_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh(("dp",), world=1, device=resolve_device(device))
+    train_step, init = make_sharded_train_step(mesh, config, optimizer,
+                                               loss_chunks=loss_chunks)
 
     def init_fn(seed: int = 0):
-        model = DecoderLM(config, param_dtype=torch.float32).to(device)
-        init_params(model, seed)
-        return model, make_opt(model.parameters())
+        return init(seed)[:2]
+
+    return train_step, init_fn
+
+
+def sharded_loss_fn(model: DecoderLM, tokens, loss_chunks: int = 0):
+    """(loss, base) of one rank for the **global** batch ``tokens [B,
+    S]`` (the same on every rank): the targets are ``roll(tokens, -1)``
+    of the global batch and only its last position is masked, so a
+    sequence split over sp keeps the pairs across its block edges; the
+    rank takes its slice (``model.plan.slicer``; the whole batch without
+    a plan), sums its masked cross-entropy (per sequence chunk with
+    ``loss_chunks``) and divides by the global count ``B * (S - 1)``.
+    ``base`` is that share, ``loss`` adds ``aux_loss_weight`` times the
+    MoE layers' aux losses (whole on every rank). Summed over the data
+    group, the bases give the reference's mean."""
+    cfg = model.cfg
+    b, s = tokens.shape
+    targets = torch.roll(tokens, -1, dims=1)
+    mask = (torch.arange(s, device=tokens.device) < s - 1).float()
+    mask = mask.expand(b, s)
+    if model.plan is not None:
+        tokens, targets, mask = (model.plan.slicer(t)
+                                 for t in (tokens, targets, mask))
+    aux = [] if cfg.num_experts > 0 else None
+    if loss_chunks:
+        feats = model(tokens, return_features=True, aux=aux)
+        kernel = model.embed.T if cfg.tie_embeddings \
+            else model.lm_head.kernel
+        total = _chunked_loss_sum(feats, kernel, targets, mask, loss_chunks,
+                                  compute_dtype=cfg.dtype)
+    else:
+        logits = model(tokens, aux=aux)
+        losses = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                                 targets.reshape(-1), reduction="none")
+        total = (losses * mask.reshape(-1)).sum()
+    base = total / (b * (s - 1))
+    if aux is None:
+        return base, base
+    return base + cfg.aux_loss_weight * sum(aux), base
+
+
+def make_sharded_train_step(mesh, config: LMConfig, optimizer=None,
+                            use_ring: bool | None = None,
+                            sp_impl: str = "ring", loss_chunks: int = 0):
+    """The training step over a parallel/mesh.py ``mesh``
+    (``dp x sp x tp x ep``; the reference's signature and checks).
+
+    Returns ``(train_step, init_fn)``. ``init_fn(seed=0, batch=None)``
+    builds the one-device model (the same seeded weights on this rank's
+    device as on one), keeps this rank's part of it, and
+    returns ``(model, optimizer, batch slicer)`` (``default_optimizer``
+    unless ``optimizer(params)`` is given). ``train_step(model, opt,
+    tokens)`` takes the **global** batch (every rank draws the same),
+    runs this rank's share (``sharded_loss_fn``), sums the gradients over
+    ``dp x sp``, steps the optimizer on the rank's parameters and returns
+    the global loss, the same number on every rank. A mesh of one rank is
+    the one-device step: its plan splits nothing and every collective is
+    the identity."""
+    from k8s_device_plugin_tpu_torch.parallel import sharding
+
+    if sp_impl not in ("ring", "ulysses"):
+        raise ValueError(f"unknown sp_impl {sp_impl!r} (ring | ulysses)")
+    if use_ring is None:
+        use_ring = "sp" in mesh.axis_names
+    if sp_impl == "ulysses" and "sp" not in mesh.axis_names:
+        raise ValueError(
+            "sp_impl='ulysses' requires an 'sp' mesh axis (the all-to-all "
+            "re-shards activations over it)"
+        )
+    device = resolve_device(mesh.device)
+    plan = ShardPlan(mesh, config, use_ring, sp_impl)
+    make_opt = optimizer or default_optimizer
+
+    def init_fn(seed: int = 0, batch=None):
+        whole = init_params(
+            DecoderLM(config, param_dtype=torch.float32).to(device), seed)
+        model = DecoderLM(config, torch.float32, plan).to(device)
+        model.load_state_dict(sharding.shard_state_dict(
+            mesh, plan.specs, whole.state_dict()))
+        return model, make_opt(model.parameters()), plan.slicer
 
     def train_step(model, opt, tokens):
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(model, tokens, loss_chunks)
+        loss, base = sharded_loss_fn(model, tokens.to(device), loss_chunks)
         loss.backward()
+        plan.reduce_grads(model)
         opt.step()
-        return loss.detach()
+        total = comm.all_reduce(base.detach().clone(), plan.data)
+        return total + (loss - base).detach()
 
     return train_step, init_fn
+
+
+def whole_state(model: DecoderLM, opt) -> dict:
+    """``{"params", "opt"}`` of the whole model from every rank's part
+    of a ``make_sharded_train_step`` model (the one-device layout; a
+    collective when the mesh has several ranks)."""
+    from k8s_device_plugin_tpu_torch.parallel import sharding
+
+    plan = model.plan
+    specs = [plan.specs[n] for n, _ in model.named_parameters()]
+    return {"params": sharding.gather_state_dict(
+                plan.mesh, plan.specs, model.state_dict()),
+            "opt": sharding.gather_optimizer_state(
+                plan.mesh, specs, opt.state_dict())}
+
+
+def load_whole_state(model: DecoderLM, opt, state: dict) -> None:
+    """Load this rank's part of a whole ``{"params", "opt"}`` state (any
+    world size wrote it) into a ``make_sharded_train_step`` model."""
+    from k8s_device_plugin_tpu_torch.parallel import sharding
+
+    plan = model.plan
+    specs = [plan.specs[n] for n, _ in model.named_parameters()]
+    model.load_state_dict(
+        sharding.shard_state_dict(plan.mesh, plan.specs, state["params"]))
+    opt.load_state_dict(
+        sharding.shard_optimizer_state(plan.mesh, specs, state["opt"]))
 
 
 def train_flops_per_step(config: LMConfig, batch: int) -> float:

@@ -509,9 +509,11 @@ def _pad(x, dim):
     return x if pad == 0 else torch.nn.functional.pad(x, (0, pad))
 
 
-def _forward(q, k, v, causal):
+def attention_forward(q, k, v, causal):
     """(out, lse) by device: the plain version on the CPU, B1 on CUDA
-    (head dim zero-padded to the kernel's, scale of the true dim)."""
+    (head dim zero-padded to the kernel's, scale of the true dim). No
+    autograd: ``FlashAttention`` and parallel/ring_attention.py's ring
+    call it in their forwards."""
     if q.device.type == "cpu":
         return reference_attention_with_lse(q, k, v, causal=causal)
     d = q.shape[-1]
@@ -521,9 +523,11 @@ def _forward(q, k, v, causal):
     return out[..., :d].contiguous() if dim != d else out, lse
 
 
-def _backward(q, k, v, out, lse, g, g_lse, causal):
+def attention_backward(q, k, v, out, lse, g, g_lse, causal):
     """(dq, dk, dv) by device: the plain version on the CPU, B3 + B4 on
-    CUDA (padded as the forward is)."""
+    CUDA (padded as the forward is), from the forward's ``out`` and
+    ``lse``; ``FlashAttention`` and the ring call it in their
+    backwards."""
     if q.device.type == "cpu":
         return reference_attention_backward(q, k, v, out, lse, g, g_lse,
                                             causal=causal)
@@ -544,7 +548,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out, lse = _forward(q, k, v, causal)
+        out, lse = attention_forward(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         ctx.set_materialize_grads(False)
@@ -555,7 +559,8 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if g is None:
             g = torch.zeros_like(out)
-        dq, dk, dv = _backward(q, k, v, out, lse, g, g_lse, ctx.causal)
+        dq, dk, dv = attention_backward(q, k, v, out, lse, g, g_lse,
+                                        ctx.causal)
         return dq, dk, dv, None
 
 
@@ -570,7 +575,7 @@ def flash_attention_with_lse(q, k, v, causal: bool = False):
     both. CPU tensors take the plain versions; CUDA tensors the kernels."""
     if _needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal)
-    return _forward(q, k, v, causal)
+    return attention_forward(q, k, v, causal)
 
 
 def flash_attention(q, k, v, causal: bool = False):
@@ -584,4 +589,4 @@ def flash_attention(q, k, v, causal: bool = False):
         return FlashAttention.apply(q, k, v, causal)[0]
     if q.device.type == "cpu":
         return reference_attention(q, k, v, causal=causal)
-    return _forward(q, k, v, causal)[0]
+    return attention_forward(q, k, v, causal)[0]

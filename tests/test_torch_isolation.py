@@ -9,8 +9,9 @@ the list. models/handoff.py left it when its bundles learned to carry
 bfloat16 without ``ml_dtypes``: every definition of it but those is
 still the reference's (HANDOFF_CHANGED, HANDOFF_ADDED). PORTED lists
 the modules rewritten for the port whose reference imports jax
-(models/compile_cache.py, models/moe.py, ops/s2d.py and the four conv
-models): walked like the rest, and keeping the reference's public names.
+(models/compile_cache.py, models/moe.py, ops/s2d.py, the four conv
+models and parallel/): walked like the rest, and keeping the reference's
+public names.
 """
 
 import ast
@@ -41,6 +42,16 @@ PORTED = {"models/compile_cache.py": ("CACHE_VERSION",
                                       "max_bytes_from_env"),
           "models/moe.py": ("MoEConfig", "MoELayer", "is_expert_weight"),
           "ops/s2d.py": ("direct_conv", "space_to_depth_conv"),
+          "parallel/__init__.py": ("build_mesh", "mesh_from_env",
+                                   "visible_chip_indices", "batch_sharding",
+                                   "shard_params_for_tp"),
+          "parallel/mesh.py": ("visible_chip_indices", "_factor",
+                               "build_mesh", "mesh_from_env"),
+          "parallel/sharding.py": ("batch_sharding", "shard_params_for_tp"),
+          "parallel/ring_attention.py": ("ring_attention",
+                                         "ring_attention_sharded"),
+          "parallel/ulysses.py": ("ulysses_attention",
+                                  "ulysses_attention_sharded"),
           "models/alexnet.py": ("NUM_CLASSES", "IMAGE_SIZE", "AlexNet",
                                 "_stem_direct", "_stem_space_to_depth",
                                 "init_params", "forward", "loss_fn",

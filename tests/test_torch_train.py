@@ -266,11 +266,19 @@ def test_trainer_without_device_raises_here():
 @pytest.mark.parametrize("argv", [["--mesh-axes", "dp,sp"],
                                   ["--mesh-axes", "ep"],
                                   ["--experts", "2", "--mesh-axes", "dp,ep"]])
-def test_trainer_refuses_what_waits_for_a8(argv):
-    """sp and ep need several devices; --experts alone trains (on one
-    device, tests/test_torch_moe.py), sharding experts over ep waits."""
-    with pytest.raises(NotImplementedError, match="A8"):
-        ttrain.main(["--tiny", "--device", "cpu", "--steps", "1", *argv])
+def test_trainer_refuses_what_waits_for_a8(argv, caplog):
+    """What waited for A8 now trains: without a launcher the world is one
+    rank, so sp and ep are axes of size 1 (several ranks:
+    tests/test_torch_sharded_train.py). Only an unknown axis is
+    refused."""
+    caplog.set_level(logging.INFO, logger="tpu-train")
+    assert ttrain.main(["--tiny", "--device", "cpu", "--steps", "1",
+                        *argv]) == 0
+    shape = {a: 1 for a in argv[argv.index("--mesh-axes") + 1].split(",")}
+    assert f"training on mesh {shape} (cpu)" in caplog.text
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        ttrain.main(["--tiny", "--device", "cpu", "--steps", "1",
+                     "--mesh-axes", "dp,xp"])
 
 
 def test_train_checkpoint_and_resume(tmp_path, caplog):

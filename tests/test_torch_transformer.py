@@ -167,15 +167,24 @@ def test_config_json_round_trips_across_packages(name):
     assert ct.dtype == torch.bfloat16
 
 
-def test_moe_config_is_refused():
-    """MoE configs build since the one-device MoE port (switch layers in
-    place of the MLPs; tests/test_torch_moe.py holds them to the
-    reference); what stays refused is sharding the experts over an
-    ``ep`` mesh axis, which waits for the port's mesh (A8)."""
+def test_moe_config_is_refused(caplog):
+    """MoE configs build (switch layers in place of the MLPs;
+    tests/test_torch_moe.py holds them to the reference) and shard their
+    experts over ``ep`` (tests/test_torch_sharded_train.py); what stays
+    refused, as in the reference's trainer, is an expert count that does
+    not divide over the ep axis: the log line and exit code 1, before
+    anything is built."""
     from k8s_device_plugin_tpu_torch.models import train as ttrain
+    from k8s_device_plugin_tpu_torch.parallel.mesh import build_mesh
 
     model = tt.DecoderLM(tt.LMConfig.tiny(num_experts=2))
     assert all(hasattr(b, "moe") and not hasattr(b, "mlp")
                for b in model.layers)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ttrain.mesh_shape("dp,ep")
+    assert ttrain.mesh_axes("dp,ep") == ("dp", "ep")
+    args = ttrain.build_arg_parser().parse_args(
+        ["--tiny", "--device", "cpu", "--experts", "3", "--mesh-axes",
+         "dp,ep"])
+    mesh = build_mesh(("dp", "ep"), (2, 2), world=4, device="cpu")
+    assert ttrain._train(args, mesh) == 1
+    assert "--experts 3 is not divisible by the ep mesh axis (2)" \
+        in caplog.text
