@@ -11,7 +11,8 @@ exits non-zero without a result:
   registers and spills of every kernel instance.
 - ``kernel``: each kernel's wrapper against its plain PyTorch version on
   the card, at the serving path's shapes and edge cases, with the
-  tolerances stated in KERNEL_CASES; CUDA-event times of the kernel, the
+  tolerances stated in KERNEL_CASES (a rank's share of the serving
+  default at tp2 among them); CUDA-event times of the kernel, the
   plain version and one PyTorch library call, beside the kernel's bound,
   with the achieved TFLOP/s and the bound's share of the kernel's time,
   and the wrapper's host time per call (host clock).
@@ -30,8 +31,9 @@ exits non-zero without a result:
   at the serving default with ragged row lengths up to 1024, the
   profile's 4 rows at 1000 tokens, rows on split boundaries, GQA, MQA,
   pages of 8 and 16, rows on the scratch page, d = 128 and 256 on both
-  routes, the speculative verify block at L = 4 for MHA and GQA; the
-  tolerances in PAGED_TOL), two launches bit-equal; each
+  routes, the speculative verify block at L = 4 for MHA and GQA, a
+  rank's share at tp2 of the serving default and of TinyLlama in both
+  types; the tolerances in PAGED_TOL), two launches bit-equal; each
   case's route and splits (paged_attn_plan); CUDA-event times of B2, the
   plain version and SDPA over already-gathered K/V (a yardstick that
   skips the page indirection), beside B2's bound by bytes.
@@ -117,6 +119,28 @@ exits non-zero without a result:
   kernels against plain attention from the same weights and tokens:
   finite losses within MOE_LOSS_RTOL, B1/B3/B4 each once per layer per
   step.
+- ``serve_tp``: tensor-parallel serving (models/serve_engine.py on a ``dp
+  x tp`` mesh, parallel/serve_ranks.py) over ranks that share the card
+  (gloo; so its speeds are not results). The kernels are built in this
+  process first; parallel/launch.py spawns the ranks
+  (``workers.serve``). In float32, at the full-width default config at
+  ``tp2`` and ``dp2 x tp2`` (the paged and the rows ContinuousBatcher
+  over the serve phases' five prompts, 48 tokens each: one after
+  another at ``tp2``, and all queued at once, where several rows must
+  decode in one call, paged at ``tp2`` and both layouts at ``dp2 x
+  tp2``) and at
+  TinyLlama-1.1B's width at ``tp2`` (paged, the first two prompts: B2
+  at 16 q heads over 2 kv heads a rank): every rank's per-call results
+  equal rank 0's, and the one-device engine driven with the same jobs
+  gives rank 0's tokens and launches B1 and B2 as often as each rank.
+  bf16 at ``tp2`` records its agreement. Then the daemon's
+  own command, ``python -m torch.distributed.run --standalone
+  --nproc-per-node N -m k8s_device_plugin_tpu_torch.models.serve`` at
+  its default (bf16), paged at 2 ranks, and with ``--no-warmup`` paged
+  at 4 and ``--kv-cache rows`` at 2: serve_paged's traffic answered
+  through rank 0's port (the only one listening), SIGTERM to rank 0,
+  every rank exiting 0; startup seconds, TTFTs, aggregate tokens/s and
+  each rank's all-reduced bytes beside serve_paged's one-device figures.
 - ``kernel_bwd``: the backward kernels B3 (dQ) and B4 (dK/dV) through
   ``FlashAttention.backward`` against the plain backward on the same
   inputs, random output and lse cotangents, at the training shapes and
@@ -249,7 +273,14 @@ KERNEL_CASES = [
     ("d256_s129_bf16", 2, 4, 4, 129, 256, "bfloat16", False),
     ("pad_d192_s512_bf16", 2, 8, 8, 512, 192, "bfloat16", True),
     ("pad_d192_s200_f32", 2, 4, 2, 200, 192, "float32", True),
+    # a rank's share of the serving default at tp2 (8 q heads over 8 kv
+    # heads, d = 64): the rows batcher's prefills under serve_tp
+    ("tp2_serve_b4_s1024_bf16", 4, 8, 8, 1024, 64, "bfloat16", True),
+    ("tp2_serve_b4_s1024_f32", 4, 8, 8, 1024, 64, "float32", True),
+    ("tp2_serve_b2_s200_f32", 2, 8, 8, 200, 64, "float32", True),
 ]
+TP_FWD_CASES = ("tp2_serve_b4_s1024_bf16", "tp2_serve_b4_s1024_f32",
+                "tp2_serve_b2_s200_f32")
 TRAIN_FWD_CASE = "train_b8_s2048_d128_bf16"
 TINYLLAMA_FWD_CASE = "tinyllama_b4_s1024_bf16"
 # Tolerances against the plain version on the same inputs. float32: the
@@ -293,7 +324,14 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 TRAIN_GRAD_TOL = 1e-3
 
 
+_T0 = time.perf_counter()
+
+
 def _jline(obj) -> None:
+    """Print one JSON line; a phase's line gets ``at_s``, the script's
+    seconds when the phase ended."""
+    if "phase" in obj:
+        obj["at_s"] = time.perf_counter() - _T0
     print(json.dumps(obj), flush=True)
 
 
@@ -496,6 +534,10 @@ def phase_kernel() -> tuple[dict, dict]:
         "tinyllama_case": {k: tiny[k] for k in (
             "case", "ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "tflops", "bound_share")},
+        "tp_cases": [{k: c[k] for k in (
+            "case", "max_abs_err_out", "max_abs_err_lse", "tol", "ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            for c in cases if c["case"] in TP_FWD_CASES],
     }
     return {"phase": "kernel", "ok": True, "cases": cases}, summary
 
@@ -682,6 +724,26 @@ PAGED_CASES = [
      (1920, 1024, 100, 0), "bfloat16"),
     ("tinyllama_decode_b4_p16_f32", 4, 1, 32, 4, 64, 16,
      (2000, 1400, 700, 37), "float32"),
+    # a rank's share at tp2 (serve_tp): the serving default's 8 q heads
+    # over 8 kv heads, and TinyLlama's 16 q heads over 2 kv heads (n_rep
+    # 8), each a decode step (one with a padding row) and a 64-token
+    # chunk, in both types; B2's plan follows the local head counts
+    ("tp2_decode_b4_p16_bf16", 4, 1, 8, 8, 64, 16, (1023, 700, 301, 37),
+     "bfloat16"),
+    ("tp2_chunk_b4_L64_p16_bf16", 4, 64, 8, 8, 64, 16, (960, 512, 100, 0),
+     "bfloat16"),
+    ("tp2_decode_b4_p16_f32", 4, 1, 8, 8, 64, 16, (1023, 700, 37, -1),
+     "float32"),
+    ("tp2_chunk_b4_L64_p16_f32", 4, 64, 8, 8, 64, 16, (960, 512, 100, 0),
+     "float32"),
+    ("tp2_tinyllama_decode_b4_p16_bf16", 4, 1, 16, 2, 64, 16,
+     (2000, 1400, 700, 37), "bfloat16"),
+    ("tp2_tinyllama_chunk_b4_L64_p16_bf16", 4, 64, 16, 2, 64, 16,
+     (1920, 1024, 100, 0), "bfloat16"),
+    ("tp2_tinyllama_decode_b4_p16_f32", 4, 1, 16, 2, 64, 16,
+     (2000, 1400, 37, -1), "float32"),
+    ("tp2_tinyllama_chunk_b4_L64_p16_f32", 4, 64, 16, 2, 64, 16,
+     (1920, 1024, 100, 0), "float32"),
 ]
 # B2 against the plain paged read. float32: summation order only (fp32
 # products on both sides). bfloat16: the plain version rounds the scores
@@ -834,6 +896,9 @@ def phase_paged_kernel() -> tuple[dict, dict]:
         "tinyllama_cases": [{k: by_name[n][k] for k in keys} for n in (
             "tinyllama_decode_b4_p16_bf16",
             "tinyllama_chunk_b4_L64_p16_bf16")],
+        "tp_cases": [{k: c[k] for k in keys + (
+            "max_abs_err", "tol", "row_rel_err", "row_tol")}
+            for c in cases if c["case"].startswith("tp2_")],
     }
     return {"phase": "kernel_paged", "ok": True, "cases": cases}, summary
 
@@ -3073,6 +3138,221 @@ def phase_train_parallel() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# serve_tp: tensor-parallel serving over dp x tp ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# (case, world, config, kv layout, dtype, prompts, together): the
+# default serving model (serve_engine.default_config) and TinyLlama-1.1B's
+# width, seed-0 weights. Exactness is gated in float32; the bf16 case
+# records its agreement with one device. TinyLlama's case takes the first
+# two prompts only: its 44 all-reduces a step through host memory cost
+# ~0.1 s a token over gloo. ``together``: every job queued at once
+# (workers.drive), so several rows decode in one call, which is gated; the
+# last job still decodes alone. At 4 ranks only these run: one row's
+# 240 steps there took 17-49 s a layout (gloo over 4 ranks on 8 cores).
+SERVE_TP_CASES = (
+    ("default_paged", 2, "default", "paged", "float32", 5, False),
+    ("default_rows", 2, "default", "rows", "float32", 5, False),
+    ("default_paged_together", 2, "default", "paged", "float32", 5, True),
+    ("tinyllama_paged", 2, "tinyllama", "paged", "float32", 2, False),
+    ("default_paged_bf16", 2, "default", "paged", "bfloat16", 5, False),
+    ("default_paged_together", 4, "default", "paged", "float32", 5, True),
+    ("default_rows_together", 4, "default", "rows", "float32", 5, True),
+)
+# (what, ranks, extra daemon flags): the daemon under torch.distributed.run;
+# the warmup through gloo takes ~20 s a daemon, so only the first warms
+# up (its startup is the one compared with serve_paged's)
+SERVE_TP_DAEMONS = (("tp2_paged", 2, []),
+                    ("tp2_rows", 2, ["--kv-cache", "rows", "--no-warmup"]),
+                    ("dp2_tp2_paged", 4, ["--no-warmup"]))
+SERVE_TP_GATED = ("flash_fwd", "paged_attn")
+
+
+def _serve_tp_case(name, config, layout, dtype, n_prompts,
+                   together) -> dict:
+    import dataclasses
+
+    from k8s_device_plugin_tpu_torch.models.serve_engine import (
+        default_config,
+    )
+    from k8s_device_plugin_tpu_torch.models.tokenizer import ByteTokenizer
+
+    cfg = default_config() if config == "default" else tinyllama_config()
+    cfg = dataclasses.replace(cfg, dtype=getattr(__import__("torch"), dtype))
+    prompts = (PAGED_PROMPTS if layout == "paged"
+               else SERVE_PROMPTS)[:n_prompts]
+    tok = ByteTokenizer()
+    drive = dict(kind="batcher", kv_mode=layout, max_batch=4,
+                 segment_tokens=16, together=together,
+                 jobs=[(tok.encode(p), SERVE_MAX_TOKENS) for p in prompts])
+    if layout == "paged":
+        drive.update(page_tokens=16, prefill_chunk=64)
+    return dict(name=name, config=cfg.to_json_dict(), drive=drive)
+
+
+def _serve_tp_exactness(launch, workers) -> dict:
+    """Each SERVE_TP_CASES case through ``workers.serve`` on the card:
+    every rank's per-call results against rank 0's (the same bits), the
+    tokens and each rank's B1/B2 launches against the one-device engine
+    driven with the same jobs (the layout's kernel launched; a
+    ``together`` case's several rows decoded in one call). Every case is
+    checked before any failure raises, with every case's line in its
+    message."""
+    out, problems = {}, []
+    for world in sorted({c[1] for c in SERVE_TP_CASES}):
+        specs = [c for c in SERVE_TP_CASES if c[1] == world]
+        cases = [_serve_tp_case(n, cfg, lay, dt, k, tog)
+                 for n, _, cfg, lay, dt, k, tog in specs]
+        t0 = time.perf_counter()
+        ranks = launch.spawn(workers.serve, world, cases, "cuda", True,
+                             device="cuda", timeout=600)
+        out[f"spawn_s_world{world}"] = time.perf_counter() - t0
+        for (name, _, cfg, lay, dt, _, tog), case in zip(specs, cases):
+            per_rank = [r[name] for r in ranks]
+            r0, one = per_rank[0], per_rank[0]["one_device"]
+            what = f"{name} at world {world}"
+            if not r0["agreed"]:
+                problems.append(f"{what}: the ranks were not in step")
+            problems += [f"{what}: rank {r}'s per-call results differ from "
+                         f"rank 0's" for r, res in enumerate(per_rank)
+                         if res["results"] != r0["results"]]
+            share = _agreement([t[len(p):] for t, (p, _) in
+                                zip(r0["tokens"], case["drive"]["jobs"])],
+                               [t[len(p):] for t, (p, _) in
+                                zip(one["tokens"], case["drive"]["jobs"])])
+            kernel = "paged_attn" if lay == "paged" else "flash_fwd"
+            if dt == "float32":
+                if r0["tokens"] != one["tokens"]:
+                    problems.append(f"{what}: tokens differ from one "
+                                    f"device's: {share}")
+                if not one["launches"][kernel]:
+                    problems.append(f"{what}: {kernel} never launched")
+                if tog and r0["rows_at_once"] < 2:
+                    problems.append(f"{what}: no call decoded several "
+                                    f"rows ({r0['rows_at_once']})")
+                problems += [
+                    f"{what}: rank {r} launched {k} {res['launches'][k]} "
+                    f"times, one device {one['launches'][k]}"
+                    for r, res in enumerate(per_rank)
+                    for k in SERVE_TP_GATED
+                    if res["launches"][k] != one["launches"][k]]
+            out[f"{name}_world{world}"] = {
+                "mesh": r0["mesh"], "config": cfg, "kv_cache": lay,
+                "dtype": dt, "calls": r0["calls"], "together": tog,
+                "rows_at_once": r0["rows_at_once"],
+                "tokens_equal_one_device": r0["tokens"] == one["tokens"],
+                "agreement": share, "gated": dt == "float32",
+                "launches_by_rank": [res["launches"] for res in per_rank],
+                "launches_one_device": one["launches"],
+                "drive_launches_rank0": r0["drive_launches"],
+                "drive_s_rank0": r0["seconds"],
+                "drive_s_one_device": one["seconds"],
+                "reduced_bytes_by_rank": [res["reduced_bytes"]
+                                          for res in per_rank]}
+    if problems:
+        raise AssertionError(f"serve_tp: {problems}\n{json.dumps(out)}")
+    return out
+
+
+def _tp_daemon(what: str, nproc: int, argv: list) -> dict:
+    """The daemon under ``python -m torch.distributed.run --standalone
+    --nproc-per-node nproc`` at its default (bf16, --max-batch 4):
+    serve_paged's traffic through rank 0's port, /healthz and /metrics
+    from it, one listening rank, then SIGTERM to rank 0: every rank must
+    exit 0. Startup (spawn to /healthz 200), TTFTs, aggregate tokens/s,
+    and the bytes each rank all-reduced (its log)."""
+    import signal
+
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="1")
+    log_path = os.path.join(HERE, "build", f"serve_tp_{what}.log")
+    with open(log_path, "w") as log_f:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(nproc), "-m",
+             "k8s_device_plugin_tpu_torch.models.serve", "--port",
+             str(port), "--max-batch", "4", *argv],
+            cwd=HERE, env=env, stdout=log_f, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"serve_tp {what}: daemon exited "
+                                         f"{proc.returncode}")
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError(f"serve_tp {what}: not ready in "
+                                         f"300 s")
+                try:
+                    if _get(port, "/healthz")[0] == 200:
+                        break
+                except (urllib.error.URLError, ConnectionError, OSError):
+                    time.sleep(0.2)
+            startup_s = time.perf_counter() - t0
+            _, completions, ttfts, wall = _paged_traffic(port, what, False)
+            code, metrics = _get(port, "/metrics")
+            if code != 200 or "tpu_serve_ttft_seconds" not in metrics:
+                raise AssertionError(f"serve_tp {what}: /metrics {code}")
+            with open(log_path) as f:
+                text = f.read()
+            pid = int(re.search(r"serves \(pid (\d+)\)", text).group(1))
+            os.kill(pid, signal.SIGTERM)
+            rc = proc.wait(timeout=180)
+        except BaseException:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=60)
+            with open(log_path) as f:
+                print(f"serve_tp {what} log tail:\n{f.read()[-4000:]}",
+                      file=sys.stderr)
+            raise
+    with open(log_path) as f:
+        text = f.read()
+    listening = re.findall(r"llm-serve listening on :(\d+)", text)
+    stopped = dict(re.findall(r"rank (\d+) stopped after \d+ calls \((\d+) "
+                              r"bytes all-reduced", text))
+    leader = re.search(r"every one in step \(rank 0: (\d+) bytes", text)
+    if rc != 0 or listening != [str(port)] or leader is None or \
+            sorted(stopped) != [str(r) for r in range(1, nproc)]:
+        raise AssertionError(f"serve_tp {what}: rc {rc}, listening "
+                             f"{listening}, followers stopped {stopped}, "
+                             f"rank 0 in step {leader is not None} (log "
+                             f"{log_path})")
+    return {"ranks": nproc, "argv": argv, "startup_s": startup_s,
+            "ttft_s": ttfts, "completion_tokens": completions,
+            "wall_s": wall,
+            "aggregate_tokens_per_s": sum(completions) / wall,
+            "reduced_bytes_by_rank": [int(leader.group(1))] + [
+                int(stopped[str(r)]) for r in range(1, nproc)],
+            "exit_code": rc}
+
+
+def phase_serve_tp(serve_paged: dict) -> dict:
+    """Tensor-parallel serving over ranks that share the card (gloo): the
+    engine in both KV layouts at tp2 and dp2 x tp2 and TinyLlama's width
+    at tp2, exact in float32 against one device, then the daemon under
+    a launcher at 2 and 4 ranks, beside serve_paged's one-device
+    figures."""
+    from k8s_device_plugin_tpu_torch.ops import _build
+    from k8s_device_plugin_tpu_torch.parallel import launch, workers
+
+    t0 = time.perf_counter()
+    for lib in ("flash_fwd", "paged_attn"):
+        _build.load(lib)  # built here, so the ranks only open them
+    line = {"phase": "serve_tp", "ok": True,
+            "note": "ranks share one card over gloo (all-reduces through "
+                    "host memory): speeds are not results"}
+    line["exactness"] = _serve_tp_exactness(launch, workers)
+    line["daemons"] = {what: _tp_daemon(what, n, argv)
+                       for what, n, argv in SERVE_TP_DAEMONS}
+    line["one_device_serve_paged"] = {
+        k: serve_paged[k] for k in ("startup_s", "ttft_s",
+                                    "aggregate_tokens_per_s")
+        if k in serve_paged}
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
+# ---------------------------------------------------------------------------
 # convnets: AlexNet, ResNet-50, MobileNetV2, InceptionV3
 # ---------------------------------------------------------------------------
 
@@ -3548,6 +3828,13 @@ def main() -> int:
     summary["launches_moe_train"] = moe_train["flash_fwd"]
     for s in bwd_summaries:
         s["launches_moe_train"] = moe_train[s["name"]]
+    serve_tp = phase_serve_tp(serve_paged)
+    _jline(serve_tp)
+    for s, k in ((summary, "flash_fwd"), (paged_summary, "paged_attn")):
+        s["launches_serve_tp_by_rank"] = {
+            case: [n[k] for n in c["launches_by_rank"]]
+            for case, c in serve_tp["exactness"].items()
+            if isinstance(c, dict)}
     train = phase_train()
     _jline(train)
     launches = train["benchmark"]["launches"]

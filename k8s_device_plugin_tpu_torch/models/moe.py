@@ -20,6 +20,9 @@ with the batch or sequence split (dp, sp) each is averaged over the
 data group before their product (the mean of per-rank products would be
 another number); the proxy's average passes its gradient through
 unchanged, so the gradients summed over the group are the whole one.
+A serving mesh (``dp x tp``) has no ``ep`` axis: every rank holds every
+expert, as the reference's serving engine does (its
+``shard_params_for_tp`` replicates expert weights without ``ep``).
 
 Numerics follow the reference's flax module, which the tests hold this
 one to:

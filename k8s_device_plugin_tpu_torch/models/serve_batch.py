@@ -59,9 +59,6 @@ from k8s_device_plugin_tpu_torch.models.serve_engine import (
     _h_occupancy,
     _h_ttft,
 )
-from k8s_device_plugin_tpu_torch.models.speculative import (
-    draft_cache_from_target,
-)
 from k8s_device_plugin_tpu_torch.obs import flightrec as obs_flightrec
 from k8s_device_plugin_tpu_torch.obs import ledger as obs_ledger
 from k8s_device_plugin_tpu_torch.obs import metrics as obs_metrics
@@ -168,6 +165,13 @@ class SLOQueue:
     def get_nowait(self):
         with self._cv:
             return self._pop_locked()
+
+    @contextlib.contextmanager
+    def held(self):
+        """Keep every consumer off the queue while the block runs: what
+        the block puts is there all at once when it ends."""
+        with self._cv:
+            yield
 
     def task_done(self) -> None:
         with self._cv:
@@ -437,6 +441,20 @@ class _BatcherBase:
         req.fail(msg, kind=kind)
         self.q.task_done()
         _g_queue_depth().set(self.q.unfinished_tasks)
+
+    def _fail_queued(self, msg: str) -> None:
+        """Fail every request still queued (the engine is gone)."""
+        while True:
+            try:
+                item = self.q.get_nowait()
+            except queue.Empty:
+                return
+            if isinstance(item, tuple) and item[0] == "warmup":
+                item[1].set()
+                self.q.task_done()
+            else:
+                self._fail_request(
+                    item[1] if isinstance(item, tuple) else item, msg)
 
     def quiesce(self):
         """Stop accepting new requests, nothing else (drain() releases
@@ -968,9 +986,7 @@ class ContinuousBatcher(_BatcherBase):
                     if pool is None:
                         pool = srv.make_pool_cache(self.rows)
                         if srv.spec_k is not None:
-                            d_pool = draft_cache_from_target(
-                                pool, srv.draft_config.num_layers
-                            )
+                            d_pool = srv.draft_cache(pool)
                     la0 = self.ledgers.now()
                     with obs_trace.span("serve.engine.admit",
                                         parent=_rep_ctx(got),
@@ -1152,6 +1168,11 @@ class ContinuousBatcher(_BatcherBase):
                     self.q.task_done()
                 _g_queue_depth().set(self.q.unfinished_tasks)
                 eng = None
+                if self.server.closed:
+                    # The serving ranks fell out of step or stopped
+                    # (parallel/serve_ranks.py): no pool can be rebuilt.
+                    self._fail_queued(str(e))
+                    return
 
     def _decode(self, pool, d_pool, rowlen, live, free):
         """One decode segment over the pool (speculative when every live
@@ -1278,9 +1299,8 @@ class ContinuousBatcher(_BatcherBase):
     def _do_warmup(self):
         srv = self.server
         spec = srv.spec_k is not None
-        dn = srv.draft_config.num_layers if spec else 0
         pool = srv.make_pool_cache(self.rows)
-        d_pool = draft_cache_from_target(pool, dn) if spec else None
+        d_pool = srv.draft_cache(pool) if spec else None
         rows = 1
         while rows <= self.rows:
             lb = srv._prefill_bucket(1)
@@ -1295,7 +1315,7 @@ class ContinuousBatcher(_BatcherBase):
                 lb = srv._bucket(lb + 1, 128, srv.config.max_seq_len)
             if spec:  # the draft rows' insert runs per row bucket too
                 d_pool = srv.insert_rows(
-                    d_pool, draft_cache_from_target(cache, dn),
+                    d_pool, srv.draft_cache(cache),
                     list(range(rows)),
                 )
             pool = srv.insert_rows(pool, cache, list(range(rows)))
@@ -1387,11 +1407,8 @@ class ContinuousBatcher(_BatcherBase):
         if d_pool is not None:
             # the self-draft's prefill rows ARE the target's first layers
             # (the same K/V, no second forward)
-            d_pool = srv.insert_rows(
-                d_pool,
-                draft_cache_from_target(cache, srv.draft_config.num_layers),
-                row_ids,
-            )
+            d_pool = srv.insert_rows(d_pool, srv.draft_cache(cache),
+                                     row_ids)
         for i, r in enumerate(row_ids):
             rowlen[r] = lens[i]
         pool = srv.insert_rows(pool, cache, row_ids)

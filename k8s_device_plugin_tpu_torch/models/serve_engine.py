@@ -1,7 +1,8 @@
-"""LMServer — the serving model engine, in PyTorch on one device.
+"""LMServer — the serving model engine, in PyTorch.
 
 The counterpart of ``k8s_device_plugin_tpu/models/serve_engine.py``:
-the model on one card (no mesh, no tensor-parallel sharding), prefill
+the model on the ``dp x tp`` mesh of the ranks a launcher started (one
+card without one), prefill
 through the flash kernel, decode loops, sampling, the batch entry
 points the rows-mode continuous batcher (serve_batch.py) drives, and
 the paged programs its paged engine drives (chunked prefill and decode
@@ -29,10 +30,32 @@ phases of a dispatch, against the reference's (serve_engine.py
 
 Without a persistent cache no dispatch is ``load``, and every count is
 what it was before the cache existed.
+
+**On a mesh.** ``LMServer`` builds ``mesh_from_env(("dp", "tp"))`` as
+the reference does (world 2: ``{dp: 1, tp: 2}``; world 4: ``{dp: 2,
+tp: 2}``), and its model is one rank's part of ``DecoderLM`` on a
+``ShardPlan`` of that mesh: the q heads, the kv heads where they
+divide, and the MLP's features split over tp (parallel/sharding.py's
+rules; MoE experts replicate, there being no ep axis), each attention
+and MLP block's output summed over tp. Weights come in whole (the
+seed-0 init, ``params=`` or a checkpoint) on every rank, which keeps its
+part. The KV caches and page pools of a rank hold its kv heads only
+(transformer.py ``cache_kv_layout``), so B1 and B2 run on the rank's
+share of the heads. dp replicas compute the same rows, as the
+reference's GSPMD program does over an unsharded batch. The
+programs run on every rank in one order: rank 0 serves and sends each
+call to the others first (parallel/serve_ranks.py). Every rank's logits
+of the rows that hold data are the same bits (the lm head is replicated
+and reads the output of an all-reduce that hands each rank the same
+sum), so every rank samples rank 0's tokens from the same generator
+state; ``defined_result`` says which rows those are. A mesh of one rank
+is the one-device engine.
 """
 
 from __future__ import annotations
 
+import functools
+import inspect
 import logging
 import threading
 import time
@@ -150,6 +173,40 @@ def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+# Engine methods that touch device state, each with the rule for the part
+# of its result that is defined (None: all of it). On a mesh, rank 0's
+# engine sends each call of one of them to the other ranks before it
+# runs, and holds the ranks to the defined part of their results after
+# (parallel/serve_ranks.py); any other method runs on rank 0 alone.
+MIRRORED: dict = {}
+# Engine attributes that shape later programs (complete_batch pads its
+# rows up to max_rows): a set on rank 0 is sent too.
+MIRRORED_ATTRS = frozenset({"max_rows"})
+
+
+def mirrored(defined=None):
+    """Mark an ``LMServer`` method as one that touches device state
+    (``MIRRORED``). ``defined(arguments, out)``, given the call's bound
+    arguments by name and its result, returns the part of the result
+    that the ranks of a mesh must agree on."""
+    def mark(fn):
+        MIRRORED[fn.__name__] = defined
+        return fn
+    return mark
+
+
+def _held_rows(arguments, out, steps_first: bool = False):
+    """The tokens of a paged program's rows that hold a page. A padding
+    row's block table is all scratch page (page 0, never allocated), and
+    the padding rows' K/V writes collide on its slots, which on the card
+    land in no fixed order; so a padding row's tokens read whichever
+    write won, and nothing reads them. ``steps_first``: the tokens are
+    ``[steps, rows]``."""
+    held = torch.as_tensor(arguments["bt"])[:, 0].cpu() != 0
+    toks = torch.as_tensor(out[1]).cpu()
+    return toks[:, held] if steps_first else toks[held]
+
+
 def default_config():
     """The daemon's model without --tiny: 8 layers, embed 1024, 16 heads,
     mlp 4096, max_seq 1024, vocab 32000, bf16 (the reference's default)."""
@@ -160,11 +217,17 @@ def default_config():
 
 
 class LMServer:
+    # No engine call will run again: never so for one process's engine
+    # (serve_ranks.Leader's is closed once its ranks broke or stopped).
+    closed = False
+
     def __init__(self, config=None, checkpoint: str | None = None,
                  device=None, params: dict | None = None,
-                 compile_cache_dir: str | None = None):
+                 compile_cache_dir: str | None = None, mesh=None):
         """The serving engine on ``device`` (default: the card; raises
-        when there is none — pass ``device="cpu"`` to run on the CPU).
+        when there is none — pass ``device="cpu"`` to run on the CPU),
+        over ``mesh`` (default: ``mesh_from_env(("dp", "tp"), device)``,
+        one rank without a launcher; module docstring).
 
         Weights: ``params`` (a DecoderLM state_dict, e.g. from
         models/params.py); else ``checkpoint``, the port's checkpoint
@@ -186,8 +249,11 @@ class LMServer:
             ByteTokenizer,
             load_tokenizer,
         )
+        from k8s_device_plugin_tpu_torch.parallel import sharding
+        from k8s_device_plugin_tpu_torch.parallel.mesh import mesh_from_env
 
-        self.device = resolve_device(device)
+        self.mesh = mesh or mesh_from_env(("dp", "tp"), device)
+        self.device = resolve_device(self.mesh.device or device)
         if checkpoint:
             ckpt_config, ckpt_params = load_checkpoint(checkpoint)
             if config is None and ckpt_config is not None:
@@ -218,7 +284,7 @@ class LMServer:
             self.eos_id = getattr(
                 self.tokenizer, "vocab", {}
             ).get("<|endoftext|>")
-        log.info("serving on %s", self.device)
+        log.info("serving on mesh %s (%s)", self.mesh.shape, self.device)
         # Persistent kernel cache: the process's kernel libraries open
         # from this store when it holds them, and nvcc builds write back,
         # so a restarted (or Nth) replica runs no nvcc.
@@ -241,6 +307,18 @@ class LMServer:
             model = model.to(self.device)
         else:
             model = transformer.init_params(model.to(self.device), seed=0)
+        self.plan = None
+        if self.mesh.world > 1:
+            # every rank holds the whole model here; keep this rank's part
+            self.plan = transformer.ShardPlan(self.mesh, self.config,
+                                              False, "ring")
+            whole = model.state_dict()
+            with torch.device("meta"):
+                model = transformer.DecoderLM(self.config, plan=self.plan)
+            model.load_state_dict(sharding.shard_state_dict(
+                self.mesh, self.plan.specs, whole), strict=True,
+                assign=True)
+            del whole
         self.model = model.eval()
         # Set by the batcher's warmup: complete_batch then refuses
         # batches wider than what was warmed.
@@ -316,6 +394,7 @@ class LMServer:
     # speculative decoding (greedy batches)
     # ------------------------------------------------------------------
 
+    @mirrored()
     def enable_draft(self, draft_layers: int, k: int = 4):
         """Turn on self-draft speculative decoding: the first
         ``draft_layers`` of the target (sharing its parameter tensors)
@@ -382,6 +461,7 @@ class LMServer:
                 "token accepted",
             ).set(total_t / (total_r * (self.spec_k + 1)))
 
+    @mirrored()
     @torch.inference_mode()
     def complete_batch_spec(self, prompts, max_new_tokens):
         """Greedy batch decode through the speculative verify loop.
@@ -511,10 +591,12 @@ class LMServer:
         layer's attention runs through the flash kernel."""
         from k8s_device_plugin_tpu_torch.models.transformer import new_cache
 
-        cache = new_cache(self.config, tokens.shape[0], self.device)
+        cache = new_cache(self.config, tokens.shape[0], self.device,
+                          self.plan)
         logits = self.model(tokens, cache, prefill=True)
         return logits, cache
 
+    @mirrored()
     def complete(self, prompt_tokens, max_new_tokens: int = 16,
                  temperature: float = 0.0, top_k: int = 0, key=None):
         """Decode one prompt; returns (tokens, TTFT seconds). ``key`` is
@@ -527,6 +609,7 @@ class LMServer:
         )
         return outs[0], ttft
 
+    @mirrored()
     @torch.inference_mode()
     def complete_batch(self, prompts, max_new_tokens,
                        temps=None, topks=None, key=None,
@@ -672,6 +755,7 @@ class LMServer:
         one decode-loop length."""
         return self._bucket(n, 8, self.config.max_seq_len)
 
+    @mirrored()
     def warmup(self, decode_tokens: int = 16, max_batch: int = 1):
         """Run every (batch-rows, prompt-length) prefill bucket and each
         row bucket's default decode loop once (the static batcher's
@@ -759,6 +843,7 @@ class LMServer:
     # continuous batching device helpers
     # ------------------------------------------------------------------
 
+    @mirrored()
     @torch.inference_mode()
     def make_pool_cache(self, rows: int):
         """A fresh rows-wide kv-cache pool (per-row index vector)."""
@@ -768,10 +853,24 @@ class LMServer:
         )
 
         return set_cache_index(
-            new_cache(self.config, rows, self.device),
+            new_cache(self.config, rows, self.device, self.plan),
             torch.ones((rows,), dtype=torch.long),
         )
 
+    @mirrored()
+    @torch.inference_mode()
+    def draft_cache(self, cache):
+        """The self-draft's rows cache from the target's ``cache``
+        (models/speculative.py ``draft_cache_from_target``): its first
+        ``draft_config.num_layers`` layers, cloned. An engine method, so
+        that it runs on every rank of a mesh."""
+        from k8s_device_plugin_tpu_torch.models.speculative import (
+            draft_cache_from_target,
+        )
+
+        return draft_cache_from_target(cache, self.draft_config.num_layers)
+
+    @mirrored()
     @torch.inference_mode()
     def insert_rows(self, pool, new_cache, row_ids):
         """Scatter prefilled cache rows into the pool at ``row_ids``, in
@@ -787,6 +886,7 @@ class LMServer:
         pool.idx = pool.idx.index_copy(0, ids, new_idx.to(pool.idx.dtype))
         return pool
 
+    @mirrored()
     @torch.inference_mode()
     def decode_segment(self, pool, tok, gen, temp, topk, segment: int):
         """One fixed-length decode segment over the whole row pool.
@@ -812,6 +912,7 @@ class LMServer:
             pool, _long(tok, dev), gen, _f32(temp, dev), _long(topk, dev),
         )
 
+    @mirrored()
     @torch.inference_mode()
     def spec_segment(self, pool, d_pool, tok, rowlen, budgets,
                      segment: int):
@@ -840,6 +941,7 @@ class LMServer:
         self._record_spec(int(budgets.sum()), rounds)
         return pool, d_pool, out
 
+    @mirrored()
     @torch.inference_mode()
     def prefill_rows(self, windows, p_lens, temps, topks, key):
         """Prefill padded prompt rows and sample each row's first token.
@@ -877,6 +979,7 @@ class LMServer:
     # steady-state tests read.
     # ------------------------------------------------------------------
 
+    @mirrored()
     @torch.inference_mode()
     def make_paged_pool(self, pool_pages: int, page_tokens: int):
         """Fresh zeroed page pool (page 0 is the engine's scratch)."""
@@ -885,7 +988,16 @@ class LMServer:
         )
 
         return new_paged_pool(self.config, pool_pages, page_tokens,
-                              self.device)
+                              self.device, self.plan)
+
+    def defined_result(self, name: str, args, kwargs, out):
+        """The part of the result of engine call ``name`` that is defined
+        (``mirrored``'s rule; all of it where the method has none)."""
+        rule = MIRRORED[name]
+        if rule is None:
+            return out
+        return rule(inspect.signature(getattr(type(self), name)).bind(
+            self, *args, **kwargs).arguments, out)
 
     def page_bucket(self, pages_needed: int, max_pages: int) -> int:
         """Block-table width bucket: power of two (floor 4) capped at
@@ -894,6 +1006,7 @@ class LMServer:
         return self._bucket(max(1, pages_needed), min(4, max_pages),
                             cap=max_pages)
 
+    @mirrored(_held_rows)
     @torch.inference_mode()
     def paged_prefill_chunk(self, pool, toks, bt, lens, last_idx, key,
                             temps, topks):
@@ -925,6 +1038,7 @@ class LMServer:
         )
         return pool, tok.cpu().numpy(), lp.cpu().numpy()
 
+    @mirrored(functools.partial(_held_rows, steps_first=True))
     @torch.inference_mode()
     def paged_decode_segment(self, pool, bt, tok, lens, key, temp, topk,
                              segment: int):
@@ -959,6 +1073,7 @@ class LMServer:
             _f32(temp, dev), _long(topk, dev),
         )
 
+    @mirrored(_held_rows)
     @torch.inference_mode()
     def paged_spec_segment(self, pool, bt, tok, lens, budgets,
                            segment: int):
@@ -997,6 +1112,7 @@ class LMServer:
         self._record_spec(int(budgets.sum()), rounds)
         return pool, out
 
+    @mirrored()
     @torch.inference_mode()
     def copy_pages(self, pool, src_ids, dst_ids):
         """Copy whole pages src -> dst in every layer (copy-on-extend),
@@ -1021,6 +1137,14 @@ class LMServer:
             pool, _long(src, dev), _long(dst, dev),
         )
 
+    def _whole_pages(self, what: str) -> None:
+        """Page bundles carry every kv head: a rank of a tp mesh holds
+        only its own (ROADMAP A8 queues the gather and the slice)."""
+        if self.plan is not None:
+            raise NotImplementedError(
+                f"page {what} on a {self.mesh.shape} mesh: handoff bundles "
+                f"need whole pages (ROADMAP A8)")
+
     @torch.inference_mode()
     def export_pages(self, pool, page_ids):
         """Gather the K/V contents of ``page_ids`` to host for handoff.
@@ -1036,6 +1160,7 @@ class LMServer:
         decode ack (or lease expiry)."""
         from k8s_device_plugin_tpu_torch.models.handoff import host_array
 
+        self._whole_pages("export")
         n = self._bucket(len(page_ids), 1, None)
         ids = list(page_ids) + [0] * (n - len(page_ids))
 
@@ -1071,6 +1196,7 @@ class LMServer:
         RuntimeError."""
         from k8s_device_plugin_tpu_torch.models.handoff import to_tensor
 
+        self._whole_pages("import")
         n = self._bucket(len(page_ids), 1, None)
         ids = list(page_ids) + [0] * (n - len(page_ids))
         layers = len(pool.k_pages)

@@ -20,11 +20,25 @@ The flag surface is the reference's plus ``--device``.
 ``--compile-cache-dir`` keeps the port's kernel libraries (the nvcc
 builds of csrc/) in a persistent cache (models/compile_cache.py), so a
 restart or a sibling replica on the same volume runs no nvcc.
-``--experts N`` serves switch-MoE layers (models/moe.py) on one device.
+``--experts N`` serves switch-MoE layers (models/moe.py).
 ``--checkpoint`` reads the port's checkpoint directory
 (models/params.py), which tools/orbax_to_torch.py writes from the
 reference's. ``--device`` is new: the card by default, ``cpu`` on
 request (the counterpart of the reference's ``JAX_PLATFORMS``).
+
+Tensor-parallel serving: started by a launcher (``python -m
+torch.distributed.run --standalone --nproc-per-node N -m
+k8s_device_plugin_tpu_torch.models.serve ...``), the daemon serves the
+model over the ``dp x tp`` mesh of its N ranks (models/serve_engine.py).
+Rank 0 binds the port and owns every host-side part (HTTP, the batchers,
+the page tables, tokenization, metrics); the other ranks bind nothing
+and follow rank 0's engine calls (parallel/serve_ranks.py). SIGTERM to
+rank 0 drains as on one rank, then stops the followers; they ignore
+SIGTERM themselves (a launcher that forwards it to every rank would
+otherwise cut the drain short), and every rank exits 0. A rank that
+raises or dies stops the daemon with a non-zero exit. ``--role
+prefill|decode`` runs on one rank only (ROADMAP A8). Without
+``WORLD_SIZE > 1`` it is the one-rank daemon.
 """
 
 from __future__ import annotations
@@ -593,9 +607,15 @@ def main(argv=None, on_ready=None) -> int:
     parser = build_arg_parser()
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
     if args.role != "both":
         # Fail at the flag layer, not deep in batcher construction: a
         # Helm values typo should print the contract, not a traceback.
+        if world > 1:
+            parser.error("--role prefill/decode runs on one rank: under "
+                         "tensor parallelism a handoff bundle needs whole "
+                         "pages (a tp gather on export, a slice on "
+                         "import), queued in ROADMAP A8")
         if args.batching != "continuous" or args.kv_cache != "paged":
             parser.error("--role prefill/decode requires --batching "
                          "continuous and --kv-cache paged (page blocks "
@@ -604,7 +624,9 @@ def main(argv=None, on_ready=None) -> int:
             parser.error("--role decode requires --handoff-peer "
                          "(prefill base URL)")
 
-    from k8s_device_plugin_tpu_torch.models import transformer
+    if world > 1 and int(os.environ.get("RANK", "0")) != 0:
+        return _follow(args)
+
     from k8s_device_plugin_tpu_torch.obs import slo as obs_slo
     from k8s_device_plugin_tpu_torch.utils.chiplog import log_event
 
@@ -613,19 +635,18 @@ def main(argv=None, on_ready=None) -> int:
     slo_monitor = obs_slo.start_from_env()
     log_event("llm-serve", "open")
 
-    if args.tiny:
-        config = transformer.LMConfig.tiny(num_experts=args.experts)
-    elif args.experts:
-        config = transformer.LMConfig(num_experts=args.experts)
-    else:
-        config = None
     with obs_trace.span("serve.startup",
                         parent=obs_trace.context_from_env(),
                         allocation_id=obs_trace.current_allocation_id(),
                         batching=args.batching):
-        server = LMServer(config=config, checkpoint=args.checkpoint,
-                          device=args.device,
-                          compile_cache_dir=args.compile_cache_dir)
+        server = _server(args)
+        if server.mesh.world > 1:
+            from k8s_device_plugin_tpu_torch.parallel import serve_ranks
+
+            server = serve_ranks.Leader(server,
+                                        serve_ranks.Ranks(server.mesh))
+            log.info("rank 0 of %d serves (pid %d); the others follow",
+                     server.mesh.world, os.getpid())
         if args.draft_layers:
             server.enable_draft(args.draft_layers, k=args.speculative_k)
         if args.batching == "continuous":
@@ -670,13 +691,21 @@ def main(argv=None, on_ready=None) -> int:
                            role=args.role)
     httpd = ThreadingHTTPServer(("0.0.0.0", args.port), Handler)
 
-    def _graceful(signum, frame):
-        del frame
-        log.info("signal %d: shutting down", signum)
+    def _stop():
         # Quiesce, not close: new submits fail fast from here, the
         # flight recorder stays installed through the drain below.
         batcher.quiesce()
         threading.Thread(target=httpd.shutdown, daemon=True).start()
+
+    def _graceful(signum, frame):
+        del frame
+        log.info("signal %d: shutting down", signum)
+        _stop()
+
+    ranked = getattr(server, "on_broken", None)
+    if ranked is not None:
+        # the ranks fell out of step: nothing can be served any more
+        ranked.append(_stop)
 
     # Only the main thread may install handlers (in-process callers run
     # main() in a worker thread and own shutdown).
@@ -699,10 +728,64 @@ def main(argv=None, on_ready=None) -> int:
     if slo_monitor is not None:
         slo_monitor.stop()
     httpd.server_close()
-    log_event("llm-serve", "close", rc=0 if drained else 1,
-              note=None if drained else "drain timed out")
+    in_step = True
+    if ranked is not None:
+        in_step = server.stop()
+        _leave_group()
+    rc = 0 if drained and in_step else 1
+    log_event("llm-serve", "close", rc=rc,
+              note=None if rc == 0 else
+              "drain timed out" if not drained else "ranks out of step")
     log.info("llm-serve stopped")
-    return 0 if drained else 1
+    return rc
+
+
+def _server(args) -> LMServer:
+    """The engine of ``args`` on this rank (the mesh of every rank)."""
+    from k8s_device_plugin_tpu_torch.models import transformer
+
+    if args.tiny:
+        config = transformer.LMConfig.tiny(num_experts=args.experts)
+    elif args.experts:
+        config = transformer.LMConfig(num_experts=args.experts)
+    else:
+        config = None
+    return LMServer(config=config, checkpoint=args.checkpoint,
+                    device=args.device,
+                    compile_cache_dir=args.compile_cache_dir)
+
+
+def _leave_group() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _follow(args) -> int:
+    """A follower rank: its part of the model and its KV, running rank
+    0's engine calls until rank 0 stops it (parallel/serve_ranks.py).
+    SIGTERM and SIGINT are rank 0's to act on: a launcher that forwards
+    them to every rank must not cut rank 0's drain short. Returns 0
+    after rank 0's stop, 1 when the ranks broke."""
+    from k8s_device_plugin_tpu_torch.parallel import serve_ranks
+
+    def _wait(signum, frame):
+        del frame
+        log.info("signal %d: rank 0 drains and stops this rank", signum)
+
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, _wait)
+        signal.signal(signal.SIGINT, _wait)
+    server = _server(args)
+    try:
+        serve_ranks.follow(server, serve_ranks.Ranks(server.mesh))
+    except Exception:
+        log.exception("rank %d: the serving ranks broke",
+                      server.mesh.rank)
+        return 1
+    _leave_group()
+    return 0
 
 
 if __name__ == "__main__":

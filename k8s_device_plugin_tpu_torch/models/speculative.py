@@ -75,10 +75,11 @@ def draft_params_from_target(model: DecoderLM, num_layers: int) -> DecoderLM:
     for ``num_layers`` whose ``embed``, ``pos_embed``, ``ln_f``,
     ``lm_head`` and blocks are the target's own modules. Nothing is
     loaded or copied; the draft's parameters are the target's tensors
-    (its shell is built on the meta device, then given them)."""
+    (its shell is built on the meta device, then given them). A sharded
+    target's draft is on the target's plan: the same rank's part."""
     cfg = dataclasses.replace(model.cfg, num_layers=num_layers)
     with torch.device("meta"):
-        draft = DecoderLM(cfg)
+        draft = DecoderLM(cfg, plan=model.plan)
     draft.embed = model.embed
     if cfg.position == "learned":
         draft.pos_embed = model.pos_embed

@@ -5,11 +5,15 @@ flags plus ``--device``, the same loop, log lines and preemption
 contract, over ``transformer.make_sharded_train_step`` on the mesh of
 the ranks a launcher started (parallel/mesh.py ``mesh_from_env``).
 
-- ``--mesh-axes`` takes any of ``dp``, ``sp``, ``tp`` and ``ep``,
-  factored over the world size as the reference factors its devices
-  (largest innermost); ``--sp-impl`` picks ring attention or Ulysses
-  for ``sp``. ``--experts N`` trains switch-MoE layers (models/moe.py),
-  split over ``ep``; N must divide over it (logged, exit 1). Run under
+- ``--mesh-axes`` takes any axis names, factored over the world size
+  as the reference factors its devices (largest innermost). ``dp``,
+  ``sp``, ``tp`` and ``ep`` split the batch, the sequence, the heads
+  and features, and the experts; the step replicates over any other
+  axis, as the reference's does (the same batch slice on each of its
+  ranks, no gradient reduction over it). ``--sp-impl`` picks ring
+  attention or Ulysses for ``sp``. ``--experts N`` trains switch-MoE
+  layers (models/moe.py), split over ``ep``; N must divide over it
+  (logged, exit 1). Run under
   ``python -m torch.distributed.run --nproc-per-node N -m
   k8s_device_plugin_tpu_torch.models.train ...``; with no launcher it
   trains on one device. Rank 0 logs; the others log warnings only.
@@ -65,8 +69,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="use switch-MoE MLPs with this many experts "
                    "(shard over an 'ep' mesh axis)")
     p.add_argument("--mesh-axes", default="dp,tp",
-                   help="comma list from dp,sp,tp,ep (sp enables sequence "
-                   "parallelism, ep shards experts)")
+                   help="comma list of axis names: dp, sp, tp and ep "
+                   "split (sp enables sequence parallelism, ep shards "
+                   "experts); the step replicates over any other")
     p.add_argument("--sp-impl", default="ring", choices=("ring", "ulysses"),
                    help="sequence-parallel attention: ring (K/V ring "
                    "stream) or ulysses (all-to-all head/seq re-shard)")
@@ -77,12 +82,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def mesh_axes(arg: str) -> tuple:
-    """The axes of ``--mesh-axes``, each one of dp, sp, tp, ep."""
-    axes = tuple(a.strip() for a in arg.split(",") if a.strip())
-    for a in axes:
-        if a not in ("dp", "sp", "tp", "ep"):
-            raise ValueError(f"unknown mesh axis {a!r} (dp, sp, tp, ep)")
-    return axes
+    """The axes of ``--mesh-axes``: any names, as the reference's mesh
+    takes (an axis outside dp, sp, tp and ep replicates)."""
+    return tuple(a.strip() for a in arg.split(",") if a.strip())
 
 
 class Checkpoints:

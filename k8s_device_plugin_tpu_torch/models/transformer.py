@@ -27,6 +27,10 @@ trains it over ``dp x sp x tp x ep``:
   ``coord_sp * s/P`` on (the learned table and RoPE alike); attention
   runs as ring attention or Ulysses (parallel/) on B1, B3 and B4.
 - ep: a rank holds ``E / ep`` experts (models/moe.py).
+- serving (models/serve_engine.py on a ``dp x tp`` mesh): the rows
+  cache and the page pool of a rank hold only the kv heads its q heads
+  read (``cache_kv_layout``), and the cached and paged forwards run
+  the rank's heads through the same f/g pair as the full one.
 - the loss takes its targets from the global batch before slicing, so
   the last token of block r predicts the first of block r + 1, and
   divides each rank's sum by the global count; gradients are summed over
@@ -173,7 +177,8 @@ class KVCache:
     """Contiguous per-row kv-cache: the reference's ``cache`` collection.
 
     ``k[l]`` / ``v[l]`` are layer l's ``[rows, max_len, kv_heads,
-    head_dim]`` buffers, updated in place where the reference returns an
+    head_dim]`` buffers (a sharded model's rank: its own kv heads,
+    ``cache_kv_layout``), updated in place where the reference returns an
     updated copy. ``idx`` is the next write position: a scalar (every row
     at the same position, the prefill shape) or a ``[rows]`` vector. The
     reference keeps one index per layer plus ``pos_idx``, always equal;
@@ -185,10 +190,37 @@ class KVCache:
     idx: torch.Tensor
 
 
-def new_cache(config: LMConfig, rows: int, device) -> KVCache:
+def cache_kv_layout(config: LMConfig, plan=None) -> tuple:
+    """``(first, heads, expand)``: the kv heads one rank's KV cache holds,
+    ``[first, first + heads)`` of the model's, for the q heads it runs.
+
+    Without a plan, or where tp does not split the q heads, that is
+    every kv head. Where the kv heads divide over tp, the rank's own.
+    Where they do not (GQA with ``tp > kv_heads``: K/V are computed
+    whole on every rank), the kv heads that the rank's q heads ``[h0,
+    h0 + heads)`` read: one, shared by all of them, when its q heads
+    lie in one kv head's group (``n_rep % heads == 0``); else, when
+    its q heads straddle groups unevenly, one copy per q head
+    (``expand``: ``repeat_kv``'s expansion, ``first`` = h0), since B1
+    and B2 read kv heads in place only at one ``n_rep``."""
+    if plan is None or not plan.split["attn"]:
+        return 0, config.kv_heads, False
+    tp = plan.mesh.coord("tp")
+    if plan.split["kv"]:
+        heads = plan.width(config.kv_heads, "kv")
+        return tp * heads, heads, False
+    heads = plan.width(config.num_heads, "attn")
+    n_rep = config.num_heads // config.kv_heads
+    if n_rep % heads == 0:
+        return tp * heads // n_rep, 1, False
+    return tp * heads, heads, True
+
+
+def new_cache(config: LMConfig, rows: int, device, plan=None) -> KVCache:
     """A zeroed rows-wide cache at index 0 (what the reference's prefill
-    creates inside ``apply``)."""
-    shape = (rows, config.max_seq_len, config.kv_heads, config.head_dim)
+    creates inside ``apply``); under a ``plan``, the rank's kv heads."""
+    shape = (rows, config.max_seq_len, cache_kv_layout(config, plan)[1],
+             config.head_dim)
     return KVCache(
         k=[torch.zeros(shape, dtype=config.dtype, device=device)
            for _ in range(config.num_layers)],
@@ -216,7 +248,8 @@ class PagedKV:
     collection of ``k_pages`` / ``v_pages`` per layer.
 
     ``k_pages[l]`` / ``v_pages[l]`` are layer l's ``[pool_pages,
-    page_tokens, kv_heads, head_dim]`` buffers (post-RoPE keys), shared
+    page_tokens, kv_heads, head_dim]`` buffers (post-RoPE keys; a
+    sharded model's rank: its own kv heads, ``cache_kv_layout``), shared
     by every row and updated in place where the reference returns an
     updated copy. The logical view — block tables and row lengths — is
     the caller's and comes in as ``pages=(bt, lens)``; page 0 is the
@@ -227,9 +260,11 @@ class PagedKV:
 
 
 def new_paged_pool(config: LMConfig, pool_pages: int, page_tokens: int,
-                   device) -> PagedKV:
-    """A zeroed page pool (the reference's ``make_paged_pool``)."""
-    shape = (pool_pages, page_tokens, config.kv_heads, config.head_dim)
+                   device, plan=None) -> PagedKV:
+    """A zeroed page pool (the reference's ``make_paged_pool``); under a
+    ``plan``, the rank's kv heads."""
+    shape = (pool_pages, page_tokens, cache_kv_layout(config, plan)[1],
+             config.head_dim)
     return PagedKV(
         k_pages=[torch.zeros(shape, dtype=config.dtype, device=device)
                  for _ in range(config.num_layers)],
@@ -418,6 +453,8 @@ class Attention(nn.Module):
         # whether K/V stay whole there (their heads do not divide)
         self.tp = plan.tp if plan and plan.split["attn"] else None
         self.kv_whole = self.tp is not None and not plan.split["kv"]
+        # the kv heads a KV cache of this rank holds (cache_kv_layout)
+        self.cache_kv = cache_kv_layout(cfg, plan)
         dense = functools.partial(Dense, dtype=cfg.dtype,
                                   param_dtype=param_dtype)
         self.wq = dense(cfg.embed_dim, self.heads * hd, qkv_bias)
@@ -429,17 +466,41 @@ class Attention(nn.Module):
                 pages=None):
         if cache is None:
             return self._full(x)
-        cfg = self.cfg
         b, s, _ = x.shape
-        hd = cfg.head_dim
-        q = self.wq(x).view(b, s, cfg.num_heads, hd)
-        k = self.wk(x).view(b, s, cfg.kv_heads, hd)
-        v = self.wv(x).view(b, s, cfg.kv_heads, hd)
+        q, k, v = self._qkv(x)
         if pages is not None:
             out = self._paged_attention(q, k, v, cache, layer, pages)
         else:
             out = self._cached_attention(q, k, v, cache, layer, prefill)
-        return self.wo(out.reshape(b, s, cfg.num_heads * hd))
+        return self.wo(out.reshape(b, s, self.heads * self.cfg.head_dim),
+                       reduce_group=self.tp)
+
+    def _qkv(self, x):
+        """This rank's q ``[b, s, heads, d]`` and K/V ``[b, s, kv, d]``
+        (before RoPE), x entering the tp split through f: its own q heads,
+        and K/V in the layout its KV cache holds (``cache_kv_layout``).
+        Where the kv heads do not divide over tp (``kv_whole``), K/V are
+        computed whole on every rank and enter the split through f after
+        the projection (so their weights' gradients are whole), and the
+        rank keeps the kv heads its q heads read. The kernels read shared
+        kv heads in place (GQA); Ulysses expands what its all-to-all
+        cannot split."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hd = cfg.head_dim
+        xf = comm.copy_to_group(x, self.tp)
+        q = self.wq(xf).view(b, s, self.heads, hd)
+        if not self.kv_whole:
+            k, v = (w(xf).view(b, s, self.kv_heads, hd)
+                    for w in (self.wk, self.wv))
+            return q, k, v
+        first, n, expand = self.cache_kv
+        k, v = (comm.copy_to_group(w(x), self.tp).view(
+            b, s, cfg.kv_heads, hd) for w in (self.wk, self.wv))
+        if expand:
+            k, v = (repeat_kv(t, cfg.num_heads // cfg.kv_heads)
+                    for t in (k, v))
+        return q, k[:, :, first:first + n], v[:, :, first:first + n]
 
     def _full(self, x):
         """The full-sequence causal forward of this rank's part: its heads
@@ -449,22 +510,7 @@ class Attention(nn.Module):
         cfg, plan = self.cfg, self.plan
         b, s, _ = x.shape
         hd = cfg.head_dim
-        tp = self.tp
-        xf = comm.copy_to_group(x, tp)
-        q = self.wq(xf).view(b, s, self.heads, hd)
-        if not self.kv_whole:
-            k = self.wk(xf).view(b, s, self.kv_heads, hd)
-            v = self.wv(xf).view(b, s, self.kv_heads, hd)
-        else:
-            # The kv heads do not divide over tp: K/V are computed whole
-            # on every rank and enter the split through f (so their
-            # weights' gradients are whole), expanded to the q heads, and
-            # the rank keeps its own.
-            first = plan.mesh.coord("tp") * self.heads
-            n_rep = cfg.num_heads // cfg.kv_heads
-            k, v = (repeat_kv(comm.copy_to_group(w(x), tp).view(
-                b, s, cfg.kv_heads, hd), n_rep)[:, :, first:first + self.heads]
-                for w in (self.wk, self.wv))
+        q, k, v = self._qkv(x)
         if cfg.position == "rope":
             pos = _seq_offset(plan, s) + torch.arange(s, device=x.device)
             cos, sin = rope_cos_sin(pos, hd, cfg.rope_theta)
@@ -474,12 +520,12 @@ class Attention(nn.Module):
                 else ulysses_attention
             out = attn(q, k, v, plan.sp, causal=True)
         else:
-            # The kernels read shared kv heads in place (GQA), so K/V go
-            # in unexpanded; under autograd FlashAttention's backward
-            # (B3, B4) returns their gradients unexpanded too.
+            # K/V go in unexpanded; under autograd FlashAttention's
+            # backward (B3, B4) returns their gradients unexpanded too.
             out = flash_attention(_bhsd(q), _bhsd(k), _bhsd(v),
                                   causal=True).transpose(1, 2)
-        return self.wo(out.reshape(b, s, self.heads * hd), reduce_group=tp)
+        return self.wo(out.reshape(b, s, self.heads * hd),
+                       reduce_group=self.tp)
 
     def _cached_attention(self, q, k, v, cache: KVCache, layer: int,
                           prefill: bool):
@@ -642,7 +688,9 @@ class DecoderLM(nn.Module):
     """The decoder LM. ``param_dtype=None`` is the serving layout
     (weights in ``cfg.dtype``, no gradients); ``torch.float32`` is
     flax's training layout (module docstring). With a ``plan`` it is one
-    rank's part of the sharded model (full-sequence forward only)."""
+    rank's part of the sharded model, in every forward: the full one
+    (training), the rows cache's and the page pool's (serving, with
+    caches from ``new_cache`` / ``new_paged_pool`` on the same plan)."""
 
     def __init__(self, cfg: LMConfig, param_dtype=None,
                  plan: ShardPlan | None = None):
@@ -677,10 +725,6 @@ class DecoderLM(nn.Module):
         list, collects each MoE layer's aux loss."""
         cfg = self.cfg
         s = tokens.shape[1]
-        if cache is not None and self.plan is not None \
-                and self.plan.mesh.world > 1:
-            raise ValueError("a sharded DecoderLM runs the full-sequence "
-                             "forward only")
         # flax casts the table to cfg.dtype before the gather, so
         # repeated tokens' gradients sum in cfg.dtype too. Its gather is
         # jnp.take's fill mode: ids in [-vocab, 0) wrap, ids outside

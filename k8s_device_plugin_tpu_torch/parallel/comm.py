@@ -26,7 +26,9 @@ and float16 tensors are reduced in float32 and rounded once.
 tensors of CUDA ranks are copied to host memory and back here, and
 nowhere else; ``STAGED`` counts those bytes (device to host plus host
 to device). NCCL takes them where they are; that route is the same
-calls without the copies.
+calls without the copies. ``REDUCED`` counts the bytes each rank
+all-reduces (what gloo moves through host memory for CUDA tensors
+inside its own all-reduce, and NCCL over the links).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ class CommStats:
 
 
 STAGED = CommStats()
+REDUCED = CommStats()
 
 
 def group_size(group) -> int:
@@ -111,8 +114,14 @@ def _reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     dtype = torch.float32 if t.dtype in (torch.bfloat16, torch.float16) \
         else t.dtype
     wide = t.to(dtype, memory_format=torch.contiguous_format, copy=True)
+    _count_reduce(wide)
     dist.all_reduce(wide, op=op, group=group)
     return wide.to(t.dtype)
+
+
+def _count_reduce(t: torch.Tensor) -> None:
+    REDUCED.bytes += t.numel() * t.element_size()
+    REDUCED.calls += 1
 
 
 class _RingShift(torch.autograd.Function):
@@ -199,5 +208,6 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
         if x.dtype in (torch.bfloat16, torch.float16):
             x.copy_(_reduce(x, group, reduce_op))
         else:
+            _count_reduce(x)
             dist.all_reduce(x, op=reduce_op, group=group)
     return x

@@ -28,6 +28,7 @@ the CPU.
 
 from __future__ import annotations
 
+import datetime
 import logging
 import os
 from typing import List, Optional, Sequence, Tuple
@@ -195,11 +196,18 @@ def backend_for(device) -> Tuple[str, str]:
                     f"and all-to-all tensors are staged through host memory")
 
 
+# How long a collective waits for the other ranks before it raises: long
+# enough for a rank that builds a kernel library first; a rank that died
+# or hung stops the others within it.
+COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=600)
+
+
 def init_process_group(device, init_method: str = "env://",
                        rank: Optional[int] = None,
                        world: Optional[int] = None) -> str:
     """Join the process group with the backend ``backend_for(device)``
-    picks, logged with its reason; returns the backend. ``rank`` and
+    picks, logged with its reason, its collectives bounded by
+    ``COLLECTIVE_TIMEOUT``; returns the backend. ``rank`` and
     ``world`` default to ``RANK`` and ``WORLD_SIZE``."""
     device = torch.device(device)
     rank = int(os.environ["RANK"]) if rank is None else rank
@@ -208,7 +216,7 @@ def init_process_group(device, init_method: str = "env://",
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world)
+                            world_size=world, timeout=COLLECTIVE_TIMEOUT)
     log.info("process group: backend %s (%s); rank %d of %d on %s",
              backend, why, rank, world, device)
     return backend

@@ -23,6 +23,12 @@ are ``[E, H*D]`` where the reference's are ``[E, H, D]``: the rule
 checks the heads, not H*D, so GQA ``wk``/``wv`` with ``tp > kv_heads``
 replicate exactly as they do there.
 
+The rules key on names and shapes, not on the layout: the serving
+layout (``DecoderLM(cfg)``, weights in the config's dtype) gets the
+training layout's specs, and ``ShardPlan`` builds them once from a
+meta model for both. A serving mesh (``dp x tp``) has no ``ep`` axis,
+so MoE experts replicate on it, as the reference's do.
+
 ``shard_state_dict`` gives a rank its part of a whole state dict (what
 ``params.params_from_jax`` or a checkpoint holds) and ``gather_tensor``
 / ``gather_state_dict`` put the parts back together;

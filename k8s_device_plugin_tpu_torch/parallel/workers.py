@@ -1,6 +1,8 @@
 """What the ranks of ``launch.spawn`` run: the multi-rank checks of the
 tests (on the CPU, against the JAX reference in the test process) and of
-chip_smoke.py (on the card, against the one-device path in rank 0).
+chip_smoke.py (on the card, against the one-device path in rank 0):
+ring attention and Ulysses, the sharded training step, and serving on
+the ``dp x tp`` mesh (``serve``, with rank 0 leading).
 
 They live in the port package because a spawned rank imports the module
 of its target function (launch.py says why a test module must not be
@@ -18,6 +20,7 @@ tensors on every rank).
 
 from __future__ import annotations
 
+import gc
 import time
 
 import numpy as np
@@ -231,3 +234,204 @@ def _one_device_step(cfg, dev, case, tokens, loss, grads, start) -> dict:
     return {"loss": want, "loss_abs_err": abs(loss - want),
             "grad_max_rel_err": rel[worst], "grad_worst": worst,
             "step_s": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving (parallel/serve_ranks.py)
+# ---------------------------------------------------------------------------
+
+def serve_counters() -> tuple:
+    """The serving path's kernel counters: B1, B2 and B2's combine."""
+    from k8s_device_plugin_tpu_torch.ops import paged_attention as paged_ops
+
+    return (attn_ops.FLASH_FWD, paged_ops.PAGED_ATTN,
+            paged_ops.PAGED_ATTN_COMBINE)
+
+
+def drive(server, d: dict):
+    """Run one serving drive on ``server`` (an ``LMServer`` or rank 0's
+    ``serve_ranks.Leader``) and return its tokens:
+
+    - ``complete``: ``prompt``, ``max_new_tokens``, and ``temperature``,
+      ``top_k``, ``seed`` to sample (a generator seeded with ``seed``);
+    - ``complete_batch``: ``prompts``, ``budgets``;
+    - ``batcher``: a ``ContinuousBatcher`` (``kv_mode``, ``max_batch``,
+      ``segment_tokens``, ``page_tokens``, ``prefill_chunk``; a
+      self-draft with ``draft`` = (layers, k)), warmed up with
+      ``warmup``, then ``jobs`` (prompt, budget) submitted one after
+      another, each once the one before it has finished; or, with
+      ``together``, all queued at once, the engine kept off the queue
+      until the last is in, so that several rows decode together. Either
+      way one request order, so one sequence of programs, on every run.
+
+    Returns ``(tokens, launches)``: the kernels' launches over the
+    requests (after any warmup)."""
+    counters = serve_counters()
+    kind = d["kind"]
+    if kind == "complete":
+        key = server.generator(d["seed"]) if "seed" in d else None
+        before = _counts(counters)
+        out, _ = server.complete(d["prompt"], d["max_new_tokens"],
+                                 temperature=d.get("temperature", 0.0),
+                                 top_k=d.get("top_k", 0), key=key)
+        return out, _since(counters, before)
+    if kind == "complete_batch":
+        before = _counts(counters)
+        out, _ = server.complete_batch(d["prompts"], d["budgets"])
+        return out, _since(counters, before)
+    from k8s_device_plugin_tpu_torch.models.serve_batch import (
+        ContinuousBatcher,
+    )
+
+    if d.get("draft"):
+        server.enable_draft(*d["draft"])
+    b = ContinuousBatcher(
+        server, max_batch=d.get("max_batch", 2),
+        segment_tokens=d.get("segment_tokens", 4), kv_mode=d["kv_mode"],
+        page_tokens=d.get("page_tokens", 0),
+        prefill_chunk=d.get("prefill_chunk", 0))
+    try:
+        if d.get("warmup"):
+            b.warmup()
+        before = _counts(counters)
+        if d.get("together"):
+            with b.q.held():
+                reqs = [b.submit_async(p, n) for p, n in d["jobs"]]
+            out = [b.wait(r)[0] for r in reqs]
+        else:
+            out = [b.submit(p, n)[0] for p, n in d["jobs"]]
+        launches = _since(counters, before)
+    finally:
+        b.drain()
+        b.close()
+    return out, launches
+
+
+def rows_at_once(log, results) -> int:
+    """The most rows that one call of a recorded batcher drive decoded
+    together: the held rows of a paged decode segment, or the rows that
+    one insert placed in the rows pool."""
+    widths = [0]
+    for msg, res in zip(log, results):
+        if msg["name"] == "paged_decode_segment" and res:
+            widths.append(len(res[0]))
+        elif msg["name"] == "insert_rows":
+            widths.append(len(msg["args"][2]))
+    return max(widths)
+
+
+def _zero(counters) -> None:
+    for c in counters:
+        c.launches = 0
+
+
+def _counts(counters) -> dict:
+    return {c.name: c.launches for c in counters}
+
+
+def _since(counters, before: dict) -> dict:
+    return {c.name: c.launches - before[c.name] for c in counters}
+
+
+def serve(cases: list, device: str = "cpu", compare: bool = False):
+    """Each case serves on the ``dp x tp`` mesh of every rank:
+    ``LMServer(LMConfig(**case["config"]))`` with ``case["params"]`` (a
+    whole state dict as numpy arrays) or the seed-0 weights; rank 0
+    leads (``serve_ranks.Leader``, recording) and runs
+    ``drive(leader, case["drive"])``, the others follow. Returns, on
+    every rank, ``{case name: {"calls", "results" (each call's integer
+    results), "launches" (over the whole case), "mesh", "coords",
+    "staged_bytes", "reduced_bytes"}}``; rank 0 adds ``"tokens"``,
+    ``"drive_launches"`` (over the requests), ``"agreed"`` (the stop
+    found every rank in step), ``"rows_at_once"`` (``rows_at_once``),
+    ``"seconds"`` and, without ``compare``,
+    ``"log"`` (its messages, for ``serve_ranks.replay``). With
+    ``compare`` rank 0 drives a one-device engine of the same weights
+    too, and adds ``"one_device"``: its tokens, launches and seconds.
+
+    ``case["fail"]``: the followers' ``complete_batch`` raises; rank 0
+    reports the error it met (``"error"``) and its ``"seconds"``, the
+    followers theirs (``"raised"``). It leaves the process group broken,
+    so it goes last."""
+    from k8s_device_plugin_tpu_torch.models import transformer
+    from k8s_device_plugin_tpu_torch.models.serve_engine import LMServer
+    from k8s_device_plugin_tpu_torch.parallel import serve_ranks
+
+    dev = resolve_device(device)
+    results = {}
+    for case in cases:
+        cfg = transformer.LMConfig(**case["config"])
+        params = None
+        if "params" in case:
+            params = {n: torch.from_numpy(np.asarray(a))
+                      for n, a in case["params"].items()}
+        server = LMServer(cfg, device=dev, params=params)
+        ranks = serve_ranks.Ranks(server.mesh, case.get(
+            "ack_timeout_s", serve_ranks.ACK_TIMEOUT_S))
+        staged, reduced = comm.STAGED.bytes, comm.REDUCED.bytes
+        res = {"mesh": server.mesh.shape, "coords": server.mesh.coords}
+        t0 = time.perf_counter()
+        _zero(serve_counters())
+        if server.mesh.rank == 0:
+            leader = serve_ranks.Leader(server, ranks, record=True)
+            try:
+                res["tokens"], res["drive_launches"] = drive(
+                    leader, case["drive"])
+            except Exception as e:
+                if not case.get("fail"):
+                    raise
+                res["error"] = f"{type(e).__name__}: {e}"
+            res["seconds"] = time.perf_counter() - t0
+            res["agreed"] = leader.stop()
+            res.update(calls=leader.calls, results=leader.results,
+                       launches=_counts(serve_counters()),
+                       rows_at_once=rows_at_once(leader.log,
+                                                 leader.results))
+            if compare and not case.get("fail"):
+                del leader, server   # the card's memory for one device
+                gc.collect()
+                res["one_device"] = _one_device(case, params, dev)
+            elif not case.get("fail"):
+                res["log"] = leader.log
+        else:
+            if case.get("fail"):
+                def refuse(*args, **kwargs):
+                    raise RuntimeError("a follower's call raised")
+
+                server.complete_batch = refuse
+            try:
+                res.update(serve_ranks.follow(server, ranks, record=True))
+            except Exception as e:
+                if not case.get("fail"):
+                    raise
+                res["raised"] = f"{type(e).__name__}: {e}"
+            res["launches"] = _counts(serve_counters())
+            res["seconds"] = time.perf_counter() - t0
+        res["staged_bytes"] = comm.STAGED.bytes - staged
+        res["reduced_bytes"] = comm.REDUCED.bytes - reduced
+        results[case["name"]] = res
+        server = None
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return results
+
+
+def _one_device(case, params, dev) -> dict:
+    """The case's drive on a one-device engine of the case's weights:
+    its tokens, launches and seconds."""
+    from k8s_device_plugin_tpu_torch.models import transformer
+    from k8s_device_plugin_tpu_torch.models.serve_engine import LMServer
+
+    one = LMServer(transformer.LMConfig(**case["config"]), device=dev,
+                   params=params, mesh=build_mesh(("dp", "tp"), world=1,
+                                                  device=dev))
+    counters = serve_counters()
+    _zero(counters)
+    t0 = time.perf_counter()
+    tokens, _ = drive(one, case["drive"])
+    out = {"tokens": tokens, "launches": _counts(counters),
+           "seconds": time.perf_counter() - t0}
+    del one
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out

@@ -269,16 +269,44 @@ def test_trainer_without_device_raises_here():
 def test_trainer_refuses_what_waits_for_a8(argv, caplog):
     """What waited for A8 now trains: without a launcher the world is one
     rank, so sp and ep are axes of size 1 (several ranks:
-    tests/test_torch_sharded_train.py). Only an unknown axis is
-    refused."""
+    tests/test_torch_sharded_train.py). An axis outside dp, sp, tp and
+    ep is refused no more: the mesh takes any names, as the reference's
+    does, and the step replicates over such an axis."""
     caplog.set_level(logging.INFO, logger="tpu-train")
     assert ttrain.main(["--tiny", "--device", "cpu", "--steps", "1",
                         *argv]) == 0
     shape = {a: 1 for a in argv[argv.index("--mesh-axes") + 1].split(",")}
     assert f"training on mesh {shape} (cpu)" in caplog.text
-    with pytest.raises(ValueError, match="unknown mesh axis"):
-        ttrain.main(["--tiny", "--device", "cpu", "--steps", "1",
-                     "--mesh-axes", "dp,xp"])
+    caplog.clear()
+    assert ttrain.main(["--tiny", "--device", "cpu", "--steps", "1",
+                        "--mesh-axes", "dp,xp"]) == 0
+    assert "training on mesh {'dp': 1, 'xp': 1} (cpu)" in caplog.text
+
+
+def test_step_replicates_over_an_axis_it_does_not_use():
+    """Two gloo ranks on ``("dp", "xp")`` (1 x 2): each takes the whole
+    batch and reduces no gradient over xp, so the loss and gradients on
+    every rank are the one-device step's (a double-counted xp would
+    double them)."""
+    from k8s_device_plugin_tpu_torch.parallel import launch, workers
+
+    cfg = dict(_SMALL, dtype="float32")
+    tokens = np.random.default_rng(5).integers(
+        0, cfg["vocab_size"], (4, cfg["max_seq_len"]))
+    case = dict(name="dp_xp", axes=("dp", "xp"), shape=(1, 2), config=cfg,
+                tokens=tokens)
+    ranks = launch.spawn(workers.train_step, 2, [case], timeout=300)
+    ct = tt.LMConfig(**dict(_SMALL, dtype=torch.float32))
+    step, init = tt.make_train_step(ct, "cpu")
+    model, opt = init(0)
+    want = float(step(model, opt, torch.as_tensor(tokens)))
+    for r in ranks:
+        assert r["dp_xp"]["coords"]["xp"] in (0, 1)
+        assert abs(r["dp_xp"]["loss"] - want) < 1e-5
+    got = ranks[0]["dp_xp"]["grads"]
+    for n, p in model.named_parameters():
+        np.testing.assert_allclose(got[n], p.grad.numpy(), atol=1e-5,
+                                   rtol=1e-4, err_msg=n)
 
 
 def test_train_checkpoint_and_resume(tmp_path, caplog):
