@@ -72,8 +72,8 @@ exits non-zero without a result:
   replica's, B1 never; aggregate tokens/s, the share of its bf16 tokens
   serve_paged's agree with, the hop's latency and bundle size; one bf16
   page block through export, bundle bytes and import, bit-equal.
-- ``serve_static``: the static batcher. float32 at the full-width
-  default config: the ``Batcher``'s tokens for the serve phase's prompts
+- ``serve_static``: the static batcher. float32 at the default config's
+  full width (STATIC_LAYERS layers): the ``Batcher``'s tokens for the serve phase's prompts
   equal ``complete_batch``'s over the same batches and the rows
   ContinuousBatcher's, logprobs within 1e-4. Then the daemon with
   ``--batching static --max-batch 4 --batch-window-ms 8 --warmup-tokens
@@ -84,9 +84,10 @@ exits non-zero without a result:
   traffic, B2 never; no program built for the first time during the
   traffic; the share of its bf16 tokens the serve phase's agree with.
 - ``serve_checkpoint``: serving from a checkpoint directory at
-  TinyLlama-1.1B's published shape (22 layers, hidden 2048, 32 heads
-  over 4 kv heads, MLP 5632 SwiGLU, RMSNorm, RoPE, vocab 32000, context
-  2048), random weights from seed 0 written by ``save_checkpoint``
+  TinyLlama-1.1B's published width (hidden 2048, 32 heads over 4 kv
+  heads, MLP 5632 SwiGLU, RMSNorm, RoPE, vocab 32000, context 2048; its
+  22 layers cut to TINYLLAMA_LAYERS), random weights from seed 0
+  written by ``save_checkpoint``
   (float32): the file's bytes, the write's and ``LMServer(checkpoint=)``'s
   seconds; the loaded server equal to the in-memory one in float32
   (tokens identical, logprobs bit-equal); then two daemons from the one
@@ -123,24 +124,49 @@ exits non-zero without a result:
   x tp`` mesh, parallel/serve_ranks.py) over ranks that share the card
   (gloo; so its speeds are not results). The kernels are built in this
   process first; parallel/launch.py spawns the ranks
-  (``workers.serve``). In float32, at the full-width default config at
-  ``tp2`` and ``dp2 x tp2`` (the paged and the rows ContinuousBatcher
-  over the serve phases' five prompts, 48 tokens each: one after
-  another at ``tp2``, and all queued at once, where several rows must
-  decode in one call, paged at ``tp2`` and both layouts at ``dp2 x
-  tp2``) and at
-  TinyLlama-1.1B's width at ``tp2`` (paged, the first two prompts: B2
-  at 16 q heads over 2 kv heads a rank): every rank's per-call results
+  (``workers.serve``). In float32, at the default config's full width
+  (SERVE_TP_LAYERS layers) at ``tp2`` and ``dp2 x tp2`` (the paged and
+  the rows ContinuousBatcher over the serve phases' five prompts, 48
+  tokens each: one after another at ``tp2``, and all queued at once,
+  where several rows must decode in one call, paged at ``tp2`` and both
+  layouts at ``dp2 x tp2``) and at TinyLlama-1.1B's width (TINYLLAMA_LAYERS layers) at ``tp2`` (paged,
+  the first two prompts: B2 at 16 q heads over 2 kv heads a rank):
+  every rank's per-call results
   equal rank 0's, and the one-device engine driven with the same jobs
   gives rank 0's tokens and launches B1 and B2 as often as each rank.
   bf16 at ``tp2`` records its agreement. Then the daemon's
   own command, ``python -m torch.distributed.run --standalone
   --nproc-per-node N -m k8s_device_plugin_tpu_torch.models.serve`` at
-  its default (bf16), paged at 2 ranks, and with ``--no-warmup`` paged
-  at 4 and ``--kv-cache rows`` at 2: serve_paged's traffic answered
+  its default (bf16) from a checkpoint of the default width at
+  SERVE_TP_LAYERS layers, paged at 2 ranks, and with ``--no-warmup``
+  paged at 4 and ``--kv-cache rows`` at 2: serve_paged's traffic answered
   through rank 0's port (the only one listening), SIGTERM to rank 0,
   every rank exiting 0; startup seconds, TTFTs, aggregate tokens/s and
   each rank's all-reduced bytes beside serve_paged's one-device figures.
+- ``serve_handoff_tp``: the prefill/decode roles over ``dp x tp``
+  ranks sharing the card (gloo; models/serve_engine.py ``export_pages``
+  gathers a bundle's whole pages over tp, ``import_pages`` keeps each
+  rank's kv heads). In float32 in process (``workers.handoff``), five
+  pairs of paged ContinuousBatchers over the in-process transport,
+  serve_paged's prompts one at a time, 48 tokens each: ``tp2 -> tp2``,
+  ``tp2 -> one rank`` and ``one rank -> dp2 x tp2`` at the serving
+  default's width (SERVE_TP_LAYERS layers), TinyLlama's width
+  (TINYLLAMA_LAYERS layers; 4 kv heads split over 2 ranks) at ``tp2``
+  and the serving default's with 2 kv heads at ``tp4`` (16 q heads
+  over 2 kv heads: shared), two prompts each, all in one spawn of 4
+  ranks: tokens equal to the one-device single engine's and a
+  one-device pair's, every request handed off with no lease left,
+  every rank in step, a seeded page block through each replica's
+  import and export bit for bit, the bundles' page bytes one device's
+  (pages within workers.BUNDLE_TOL), each rank's B2 launches the
+  one-device pair's for the replicas it serves. Then a bf16 daemon
+  pair at the serving default under ``torch.distributed.run``, both
+  ``--no-warmup``: ``--role prefill`` at 2 ranks and ``--role decode``
+  at 2 ranks, serve_paged's traffic
+  through the decode daemon, every request imported, one more hop's
+  seconds and its bundle's page bytes (equal to serve_handoff's one-rank
+  bundle's), each rank's B2 launches from its stop line (equal within a
+  replica), the share of the texts the one-rank pair agrees with.
 - ``kernel_bwd``: the backward kernels B3 (dQ) and B4 (dK/dV) through
   ``FlashAttention.backward`` against the plain backward on the same
   inputs, random output and lse cotangents, at the training shapes and
@@ -186,7 +212,23 @@ exits non-zero without a result:
   controls that this tolerance must see: the losses a 4-rank run that
   never stepped its optimizer, and a resume that restored nothing,
   would log.
-
+- ``train_pp``: pipeline-parallel LM training (parallel/pipeline_1f1b.py,
+  pipeline_interleaved.py; models/transformer_pp.py, transformer_tp.py)
+  over ranks sharing the card (gloo). float32 at lm-train-pp's width
+  (embed 1024, 8 heads, mlp 4096, seq 2048; lm-train-pp-tp's 16 heads)
+  cut to TRAIN_PP_LAYERS layers, batch 4, seed-0 weights, in process
+  (``workers.pp_train``): pp4 (1F1B, M = 4), pp2 x chunks 2
+  (interleaved), dp2 x pp2 (M = 2), pp2 x tp2 and dp2 x pp2 x tp2 with
+  the fused update: every rank's loss within 1e-5 and every gradient
+  within 2e-4 (allclose) of one device's autograd through
+  transformer_pp.reference_loss, B1 launched 2·M·L/S times and B3, B4
+  M·L/S times on each rank; the fused step's parameters the unfused
+  one's. Then the two pods' commands under ``torch.distributed.run``
+  at full width (bf16, 8 layers): ``transformer_pp --steps 5 --batch 8
+  --microbatches 4`` at 4 ranks and ``transformer_tp ... --dp 2 --tp 2
+  --chunks 2 --fuse-update`` at 8: the reference's line, a finite final
+  loss below the first step's, the same embedding and head on every
+  rank.
 - ``convnets``: the conv workloads (models/alexnet.py, resnet.py,
   mobilenet.py, inception.py; ops/s2d.py's stems). One train step of
   AlexNet (224^2, batch 4), ResNet-50 (224^2, 2), MobileNetV2 (224^2, 4)
@@ -1867,7 +1909,7 @@ def phase_serve_handoff(counters, paged_tokens) -> dict:
             for c in counters:
                 c.launches = 0
             hops0 = len(client.latencies_s)
-            _, completions, ttfts, wall = _paged_traffic(
+            docs, completions, ttfts, wall = _paged_traffic(
                 port, "serve_handoff", logprobs=True)
             launches = {c.name: c.launches for c in counters}
             by_replica = {k: dict(v) for k, v in charged.items()}
@@ -1940,7 +1982,8 @@ def phase_serve_handoff(counters, paged_tokens) -> dict:
         "hop_s": hop_s, "hop_alone_ms": alone_ms,
         "bundle": {"prompt_tokens": len(ids), "pages": bundle.num_pages,
                    "bytes": len(bundle.to_bytes()),
-                   "dtype": "bfloat16"},
+                   "page_bytes": _page_bytes(bundle), "dtype": "bfloat16"},
+        "texts": [list(d["choices"][0]["text"]) for d in docs[1:]],
         "prefill_chunks": chunks, "decode_segments": segments,
         "segment_tokens": decode.segment, "launches": launches,
         "launches_by_replica": by_replica,
@@ -1994,8 +2037,14 @@ def _static_tokens(srv, jobs, logprobs=False):
                  if r["kind"] == "static_batch"]
 
 
+# the float32 check's depth: the serving default's 8 layers cut to 4 for
+# time (PERF.md has the 8-layer run); the daemon serves the default itself
+STATIC_LAYERS = 4
+
+
 def _static_exactness() -> dict:
-    """float32 at full width (default_config, seed-0 weights): the static
+    """float32 at full width (default_config, STATIC_LAYERS layers,
+    seed-0 weights): the static
     Batcher's tokens for SERVE_PROMPTS equal complete_batch's over the
     same batches and the rows ContinuousBatcher's; logprobs within
     STATIC_LP_TOL of complete_batch's."""
@@ -2009,9 +2058,9 @@ def _static_exactness() -> dict:
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    srv = LMServer(config=dataclasses.replace(default_config(),
-                                              dtype=torch.float32),
-                   device="cuda")
+    srv = LMServer(config=dataclasses.replace(
+        default_config(), dtype=torch.float32, num_layers=STATIC_LAYERS),
+        device="cuda")
     jobs = [(srv.encode_prompt(p), SERVE_MAX_TOKENS) for p in SERVE_PROMPTS]
     got, calls = _static_tokens(srv, jobs, logprobs=True)
     want_toks, want_lps, start = [], [], 0
@@ -2124,15 +2173,21 @@ def phase_serve_static(counters, serve_tokens) -> dict:
 
 # TinyLlama-1.1B-Chat-v1.0's published shape (its HF config.json as
 # tools/convert_hf.py's llama_to_lm maps it): the configuration the
-# repo's example converts (example/llm-serve/convert-job.yaml). Random
-# weights from seed 0; the byte tokenizer (no files).
+# repo's example converts (example/llm-serve/convert-job.yaml), its width
+# whole, its depth cut from 22 layers to TINYLLAMA_LAYERS for time (the
+# 22-layer run's numbers are in PERF.md). Random weights from seed
+# 0; the byte tokenizer (no files).
+TINYLLAMA_LAYERS = 4
+
+
 def tinyllama_config():
     import torch
 
     from k8s_device_plugin_tpu_torch.models.transformer import LMConfig
 
     return LMConfig(
-        vocab_size=32000, num_layers=22, num_heads=32, num_kv_heads=4,
+        vocab_size=32000, num_layers=TINYLLAMA_LAYERS, num_heads=32,
+        num_kv_heads=4,
         embed_dim=2048, mlp_dim=5632, max_seq_len=2048, norm="rms",
         norm_eps=1e-5, position="rope", rope_theta=10000.0,
         mlp_act="swiglu", tie_embeddings=False, use_bias=False,
@@ -2969,7 +3024,7 @@ def _parallel_steps(launch, workers) -> dict:
                   batch=PARALLEL_STEP_BATCH)
              for name, axes, shape, impl, experts in PARALLEL_STEPS]
     ranks = launch.spawn(workers.train_step, PARALLEL_WORLD, cases, "cuda",
-                         True, device="cuda", timeout=900)
+                         True, device="cuda", timeout=600)
     out = {}
     for case, (_, axes, shape, impl, _) in zip(cases, PARALLEL_STEPS):
         per_rank = [r[case["name"]] for r in ranks]
@@ -3159,6 +3214,10 @@ SERVE_TP_CASES = (
     ("default_paged_together", 4, "default", "paged", "float32", 5, True),
     ("default_rows_together", 4, "default", "rows", "float32", 5, True),
 )
+# The serving default's width with its 8 layers cut to SERVE_TP_LAYERS for
+# time (PERF.md has the 8-layer numbers): the in-process cases, and the
+# daemons from a checkpoint of that depth (_default_checkpoint).
+SERVE_TP_LAYERS = 4
 # (what, ranks, extra daemon flags): the daemon under torch.distributed.run;
 # the warmup through gloo takes ~20 s a daemon, so only the first warms
 # up (its startup is the one compared with serve_paged's)
@@ -3177,7 +3236,8 @@ def _serve_tp_case(name, config, layout, dtype, n_prompts,
     )
     from k8s_device_plugin_tpu_torch.models.tokenizer import ByteTokenizer
 
-    cfg = default_config() if config == "default" else tinyllama_config()
+    cfg = (dataclasses.replace(default_config(), num_layers=SERVE_TP_LAYERS)
+           if config == "default" else tinyllama_config())
     cfg = dataclasses.replace(cfg, dtype=getattr(__import__("torch"), dtype))
     prompts = (PAGED_PROMPTS if layout == "paged"
                else SERVE_PROMPTS)[:n_prompts]
@@ -3199,56 +3259,60 @@ def _serve_tp_exactness(launch, workers) -> dict:
     checked before any failure raises, with every case's line in its
     message."""
     out, problems = {}, []
-    for world in sorted({c[1] for c in SERVE_TP_CASES}):
-        specs = [c for c in SERVE_TP_CASES if c[1] == world]
-        cases = [_serve_tp_case(n, cfg, lay, dt, k, tog)
-                 for n, _, cfg, lay, dt, k, tog in specs]
-        t0 = time.perf_counter()
-        ranks = launch.spawn(workers.serve, world, cases, "cuda", True,
-                             device="cuda", timeout=600)
-        out[f"spawn_s_world{world}"] = time.perf_counter() - t0
-        for (name, _, cfg, lay, dt, _, tog), case in zip(specs, cases):
-            per_rank = [r[name] for r in ranks]
-            r0, one = per_rank[0], per_rank[0]["one_device"]
-            what = f"{name} at world {world}"
-            if not r0["agreed"]:
-                problems.append(f"{what}: the ranks were not in step")
-            problems += [f"{what}: rank {r}'s per-call results differ from "
-                         f"rank 0's" for r, res in enumerate(per_rank)
-                         if res["results"] != r0["results"]]
-            share = _agreement([t[len(p):] for t, (p, _) in
-                                zip(r0["tokens"], case["drive"]["jobs"])],
-                               [t[len(p):] for t, (p, _) in
-                                zip(one["tokens"], case["drive"]["jobs"])])
-            kernel = "paged_attn" if lay == "paged" else "flash_fwd"
-            if dt == "float32":
-                if r0["tokens"] != one["tokens"]:
-                    problems.append(f"{what}: tokens differ from one "
-                                    f"device's: {share}")
-                if not one["launches"][kernel]:
-                    problems.append(f"{what}: {kernel} never launched")
-                if tog and r0["rows_at_once"] < 2:
-                    problems.append(f"{what}: no call decoded several "
-                                    f"rows ({r0['rows_at_once']})")
-                problems += [
-                    f"{what}: rank {r} launched {k} {res['launches'][k]} "
-                    f"times, one device {one['launches'][k]}"
-                    for r, res in enumerate(per_rank)
-                    for k in SERVE_TP_GATED
-                    if res["launches"][k] != one["launches"][k]]
-            out[f"{name}_world{world}"] = {
-                "mesh": r0["mesh"], "config": cfg, "kv_cache": lay,
-                "dtype": dt, "calls": r0["calls"], "together": tog,
-                "rows_at_once": r0["rows_at_once"],
-                "tokens_equal_one_device": r0["tokens"] == one["tokens"],
-                "agreement": share, "gated": dt == "float32",
-                "launches_by_rank": [res["launches"] for res in per_rank],
-                "launches_one_device": one["launches"],
-                "drive_launches_rank0": r0["drive_launches"],
-                "drive_s_rank0": r0["seconds"],
-                "drive_s_one_device": one["seconds"],
-                "reduced_bytes_by_rank": [res["reduced_bytes"]
-                                          for res in per_rank]}
+    # one spawn for every case: a case on fewer ranks leaves the rest
+    # idle (workers.serve's build_submesh); dp x tp as mesh_from_env
+    # factors the case's world
+    spawned = max(c[1] for c in SERVE_TP_CASES)
+    cases = [dict(_serve_tp_case(n, cfg, lay, dt, k, tog),
+                  name=f"{n}_world{w}", shape=(w // 2, 2))
+             for n, w, cfg, lay, dt, k, tog in SERVE_TP_CASES]
+    t0 = time.perf_counter()
+    ranks = launch.spawn(workers.serve, spawned, cases, "cuda", True,
+                         device="cuda", timeout=600)
+    out[f"spawn_s_world{spawned}"] = time.perf_counter() - t0
+    for (name, world, cfg, lay, dt, _, tog), case in zip(
+            SERVE_TP_CASES, cases):
+        per_rank = [r[case["name"]] for r in ranks[:world]]
+        r0, one = per_rank[0], per_rank[0]["one_device"]
+        what = f"{name} at world {world}"
+        if not r0["agreed"]:
+            problems.append(f"{what}: the ranks were not in step")
+        problems += [f"{what}: rank {r}'s per-call results differ from "
+                     f"rank 0's" for r, res in enumerate(per_rank)
+                     if res["results"] != r0["results"]]
+        share = _agreement([t[len(p):] for t, (p, _) in
+                            zip(r0["tokens"], case["drive"]["jobs"])],
+                           [t[len(p):] for t, (p, _) in
+                            zip(one["tokens"], case["drive"]["jobs"])])
+        kernel = "paged_attn" if lay == "paged" else "flash_fwd"
+        if dt == "float32":
+            if r0["tokens"] != one["tokens"]:
+                problems.append(f"{what}: tokens differ from one "
+                                f"device's: {share}")
+            if not one["launches"][kernel]:
+                problems.append(f"{what}: {kernel} never launched")
+            if tog and r0["rows_at_once"] < 2:
+                problems.append(f"{what}: no call decoded several "
+                                f"rows ({r0['rows_at_once']})")
+            problems += [
+                f"{what}: rank {r} launched {k} {res['launches'][k]} "
+                f"times, one device {one['launches'][k]}"
+                for r, res in enumerate(per_rank)
+                for k in SERVE_TP_GATED
+                if res["launches"][k] != one["launches"][k]]
+        out[f"{name}_world{world}"] = {
+            "mesh": r0["mesh"], "config": cfg, "kv_cache": lay,
+            "dtype": dt, "calls": r0["calls"], "together": tog,
+            "rows_at_once": r0["rows_at_once"],
+            "tokens_equal_one_device": r0["tokens"] == one["tokens"],
+            "agreement": share, "gated": dt == "float32",
+            "launches_by_rank": [res["launches"] for res in per_rank],
+            "launches_one_device": one["launches"],
+            "drive_launches_rank0": r0["drive_launches"],
+            "drive_s_rank0": r0["seconds"],
+            "drive_s_one_device": one["seconds"],
+            "reduced_bytes_by_rank": [res["reduced_bytes"]
+                                      for res in per_rank]}
     if problems:
         raise AssertionError(f"serve_tp: {problems}\n{json.dumps(out)}")
     return out
@@ -3256,74 +3320,59 @@ def _serve_tp_exactness(launch, workers) -> dict:
 
 def _tp_daemon(what: str, nproc: int, argv: list) -> dict:
     """The daemon under ``python -m torch.distributed.run --standalone
-    --nproc-per-node nproc`` at its default (bf16, --max-batch 4):
-    serve_paged's traffic through rank 0's port, /healthz and /metrics
-    from it, one listening rank, then SIGTERM to rank 0: every rank must
-    exit 0. Startup (spawn to /healthz 200), TTFTs, aggregate tokens/s,
-    and the bytes each rank all-reduced (its log)."""
-    import signal
-
+    --nproc-per-node nproc`` (bf16, --max-batch 4): serve_paged's traffic
+    through rank 0's port, /healthz and /metrics from it, one listening
+    rank, then SIGTERM to rank 0: every rank must exit 0. Startup (spawn
+    to /healthz 200), TTFTs, aggregate tokens/s, and the bytes each rank
+    all-reduced (its log)."""
     port = _free_port()
-    env = dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="1")
-    log_path = os.path.join(HERE, "build", f"serve_tp_{what}.log")
-    with open(log_path, "w") as log_f:
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             "--nproc-per-node", str(nproc), "-m",
-             "k8s_device_plugin_tpu_torch.models.serve", "--port",
-             str(port), "--max-batch", "4", *argv],
-            cwd=HERE, env=env, stdout=log_f, stderr=subprocess.STDOUT,
-            start_new_session=True)
-        try:
-            while True:
-                if proc.poll() is not None:
-                    raise AssertionError(f"serve_tp {what}: daemon exited "
-                                         f"{proc.returncode}")
-                if time.perf_counter() - t0 > 300:
-                    raise AssertionError(f"serve_tp {what}: not ready in "
-                                         f"300 s")
-                try:
-                    if _get(port, "/healthz")[0] == 200:
-                        break
-                except (urllib.error.URLError, ConnectionError, OSError):
-                    time.sleep(0.2)
-            startup_s = time.perf_counter() - t0
-            _, completions, ttfts, wall = _paged_traffic(port, what, False)
-            code, metrics = _get(port, "/metrics")
-            if code != 200 or "tpu_serve_ttft_seconds" not in metrics:
-                raise AssertionError(f"serve_tp {what}: /metrics {code}")
-            with open(log_path) as f:
-                text = f.read()
-            pid = int(re.search(r"serves \(pid (\d+)\)", text).group(1))
-            os.kill(pid, signal.SIGTERM)
-            rc = proc.wait(timeout=180)
-        except BaseException:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait(timeout=60)
-            with open(log_path) as f:
-                print(f"serve_tp {what} log tail:\n{f.read()[-4000:]}",
-                      file=sys.stderr)
-            raise
-    with open(log_path) as f:
-        text = f.read()
-    listening = re.findall(r"llm-serve listening on :(\d+)", text)
-    stopped = dict(re.findall(r"rank (\d+) stopped after \d+ calls \((\d+) "
-                              r"bytes all-reduced", text))
-    leader = re.search(r"every one in step \(rank 0: (\d+) bytes", text)
-    if rc != 0 or listening != [str(port)] or leader is None or \
-            sorted(stopped) != [str(r) for r in range(1, nproc)]:
-        raise AssertionError(f"serve_tp {what}: rc {rc}, listening "
-                             f"{listening}, followers stopped {stopped}, "
-                             f"rank 0 in step {leader is not None} (log "
-                             f"{log_path})")
+    t0 = time.perf_counter()
+    proc, log_path = _launched_daemon(f"serve_tp_{what}", nproc, argv, port)
+    try:
+        startup_s = _await_ready(proc, port, f"serve_tp {what}", t0)
+        _, completions, ttfts, wall = _paged_traffic(port, what, False)
+        code, metrics = _get(port, "/metrics")
+        if code != 200 or "tpu_serve_ttft_seconds" not in metrics:
+            raise AssertionError(f"serve_tp {what}: /metrics {code}")
+        by_rank = _stop_launched(proc, log_path, f"serve_tp {what}", nproc,
+                                 port)
+    except BaseException:
+        _kill_launched(proc, log_path)
+        raise
     return {"ranks": nproc, "argv": argv, "startup_s": startup_s,
             "ttft_s": ttfts, "completion_tokens": completions,
             "wall_s": wall,
             "aggregate_tokens_per_s": sum(completions) / wall,
-            "reduced_bytes_by_rank": [int(leader.group(1))] + [
-                int(stopped[str(r)]) for r in range(1, nproc)],
-            "exit_code": rc}
+            "reduced_bytes_by_rank": [by_rank[r]["reduced_bytes"]
+                                      for r in range(nproc)],
+            "exit_code": 0}
+
+
+def _default_checkpoint(layers: int) -> str:
+    """A checkpoint directory under build/ of the serving default's
+    width at ``layers`` layers (bf16 serving, seed-0 float32 weights):
+    how the daemon serves that depth."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models import params as tparams
+    from k8s_device_plugin_tpu_torch.models import transformer
+    from k8s_device_plugin_tpu_torch.models.serve_engine import (
+        default_config,
+    )
+
+    cfg = dataclasses.replace(default_config(), num_layers=layers)
+    ckpt = tempfile.mkdtemp(prefix="ckpt_tp_",
+                            dir=os.path.join(HERE, "build"))
+    with torch.device("cuda"):
+        model = transformer.DecoderLM(cfg, param_dtype=torch.float32)
+    tparams.save_checkpoint(ckpt, cfg, transformer.init_params(
+        model, seed=0).state_dict())
+    del model
+    torch.cuda.empty_cache()
+    return ckpt
 
 
 def phase_serve_tp(serve_paged: dict) -> dict:
@@ -3342,12 +3391,472 @@ def phase_serve_tp(serve_paged: dict) -> dict:
             "note": "ranks share one card over gloo (all-reduces through "
                     "host memory): speeds are not results"}
     line["exactness"] = _serve_tp_exactness(launch, workers)
-    line["daemons"] = {what: _tp_daemon(what, n, argv)
-                       for what, n, argv in SERVE_TP_DAEMONS}
+    ckpt = _default_checkpoint(SERVE_TP_LAYERS)
+    try:
+        line["daemons"] = {what: _tp_daemon(what, n,
+                                            ["--checkpoint", ckpt, *argv])
+                           for what, n, argv in SERVE_TP_DAEMONS}
+    finally:
+        import shutil
+
+        shutil.rmtree(ckpt, ignore_errors=True)
     line["one_device_serve_paged"] = {
         k: serve_paged[k] for k in ("startup_s", "ttft_s",
                                     "aggregate_tokens_per_s")
         if k in serve_paged}
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
+# ---------------------------------------------------------------------------
+# serve_handoff_tp: the prefill/decode roles over dp x tp ranks
+# ---------------------------------------------------------------------------
+
+# (case, world, config, prefill mesh, decode mesh, prompts): float32,
+# seed-0 weights, PAGED_PROMPTS one at a time, SERVE_MAX_TOKENS each. The
+# three pairings at the serving default's width (SERVE_TP_LAYERS layers,
+# for time); GQA at TinyLlama's width
+# (TINYLLAMA_LAYERS layers; 4 kv heads over 2 ranks: split) and at the
+# serving default with 2 kv heads at tp4 (16 q over 2 kv heads: each
+# rank's 4 q heads read one kv head, shared with the next rank).
+HANDOFF_TP_CASES = (
+    ("tp2_to_tp2", 2, "default", (1, 2), (1, 2), 5),
+    ("tp2_to_one", 2, "default", (1, 2), (1, 1), 5),
+    ("tinyllama_tp2_to_tp2", 2, "tinyllama", (1, 2), (1, 2), 2),
+    ("one_to_dp2_tp2", 4, "default", (1, 1), (2, 2), 5),
+    ("kv2_tp4_to_tp4", 4, "default_kv2", (1, 4), (1, 4), 2),
+)
+
+
+def _handoff_tp_case(name, config, prefill, decode, n_prompts) -> dict:
+    import dataclasses
+
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models.serve_engine import (
+        default_config,
+    )
+    from k8s_device_plugin_tpu_torch.models.tokenizer import ByteTokenizer
+
+    cfg = tinyllama_config() if config == "tinyllama" else \
+        dataclasses.replace(default_config(), num_layers=SERVE_TP_LAYERS)
+    if config == "default_kv2":
+        cfg = dataclasses.replace(cfg, num_kv_heads=2)
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    tok = ByteTokenizer()
+    drive = dict(jobs=[(tok.encode(p), SERVE_MAX_TOKENS)
+                       for p in PAGED_PROMPTS[:n_prompts]],
+                 max_batch=4, segment_tokens=16, page_tokens=16,
+                 prefill_chunk=64, warmup=False)
+    return dict(name=name, config=cfg.to_json_dict(), prefill=prefill,
+                decode=decode, drive=drive)
+
+
+def _handoff_tp_exactness(launch, workers) -> dict:
+    """Each HANDOFF_TP_CASES pair through ``workers.handoff`` on the card:
+    the decode side's tokens against the one-device single engine's and a
+    one-device pair's, every request handed off, every rank in step, a
+    seeded page block through each replica's import and export bit for
+    bit, the pair's bundles as many page bytes as one device's (pages
+    within workers.BUNDLE_TOL), and each rank's B2 launches equal to the
+    one-device pair's launches of the replicas it serves."""
+    out, problems = {}, []
+    # one spawn for every case: a case on fewer ranks leaves the rest
+    # idle (workers.handoff's build_submesh)
+    spawned = max(c[1] for c in HANDOFF_TP_CASES)
+    cases = [_handoff_tp_case(n, cfg, p, d, k)
+             for n, _, cfg, p, d, k in HANDOFF_TP_CASES]
+    t0 = time.perf_counter()
+    ranks = launch.spawn(workers.handoff, spawned, cases, "cuda", True,
+                         device="cuda", timeout=600)
+    out[f"spawn_s_world{spawned}"] = time.perf_counter() - t0
+    for (name, world, cfg, pre, dec, k), case in zip(HANDOFF_TP_CASES,
+                                                    cases):
+        per_rank = [r[name] for r in ranks[:world]]
+        r0 = per_rank[0]
+        one = r0["one_device"]
+        what = f"{name} at world {world}"
+        n = len(case["drive"]["jobs"])
+        if r0["tokens"] != one["tokens"] or \
+                one["pair_tokens"] != one["tokens"]:
+            diff = _first_diff(r0["tokens"], one["tokens"])
+            problems.append(f"{what}: tokens differ from one device's "
+                            f"at {diff}")
+        if r0["hops"] != n or r0["leases_left"]:
+            problems.append(f"{what}: {r0['hops']} hops for {n} "
+                            f"requests, {r0['leases_left']} leases left")
+        if not all(r["agreed"] for r in per_rank):
+            problems.append(f"{what}: the ranks were not in step")
+        if r0["round_trip"] != {"prefill": True, "decode": True}:
+            problems.append(f"{what}: page round trip {r0['round_trip']}")
+        if r0["page_bytes"] != one["page_bytes"] or \
+                r0["bundle_ratio"] > 1.0:
+            problems.append(f"{what}: bundle page bytes "
+                            f"{r0['page_bytes']} vs {one['page_bytes']}, "
+                            f"max page error {r0['bundle_max_err']}")
+        want = [sum(one["launches_by_replica"][role]
+                    for role in ("prefill", "decode")
+                    if r == 0 or role in res["calls"])
+                for r, res in enumerate(per_rank)]
+        got = [res["launches"] for res in per_rank]
+        if got != want or not min(want):
+            problems.append(f"{what}: B2 launches by rank {got}, one "
+                            f"device's replicas give {want}")
+        out[name] = {
+            "world": world, "meshes": r0["meshes"], "config": cfg,
+            "prompts": n, "tokens_equal_one_device": True,
+            "hops": r0["hops"], "calls": r0["calls"],
+            "kv_layout_by_rank": [res["kv_layout"] for res in per_rank],
+            "bundle_bytes": r0["bundle_bytes"],
+            "page_bytes": r0["page_bytes"],
+            "one_device_bundle_bytes": one["bundle_bytes"],
+            "bundle_max_err": r0["bundle_max_err"],
+            "launches_by_rank": got, "launches_want": want,
+            "launches_by_replica_rank0": r0["launches_by_replica"],
+            "launches_by_replica_one_device": one["launches_by_replica"],
+            "seconds_rank0": r0["seconds"]}
+    if problems:
+        raise AssertionError(f"serve_handoff_tp: {problems}\n"
+                             f"{json.dumps(out)}")
+    return out
+
+
+def _page_bytes(bundle) -> int:
+    """The bytes of a bundle's K/V pages (its header aside)."""
+    from k8s_device_plugin_tpu_torch.models import handoff as kv_handoff
+
+    pages = [kv_handoff.to_tensor(a)
+             for layer in bundle.to_pool_payload().values()
+             for a in layer["attn"].values()]
+    return sum(t.numel() * t.element_size() for t in pages)
+
+
+def _launched_daemon(what, nproc, argv, port):
+    """The daemon under ``torch.distributed.run`` on ``port``, its log
+    in build/<what>.log: (process, log path)."""
+    env = dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="1")
+    log_path = os.path.join(HERE, "build", f"{what}.log")
+    with open(log_path, "w") as log_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(nproc), "-m",
+             "k8s_device_plugin_tpu_torch.models.serve", "--port",
+             str(port), "--max-batch", "4", *argv],
+            cwd=HERE, env=env, stdout=log_f, stderr=subprocess.STDOUT,
+            start_new_session=True)
+    return proc, log_path
+
+
+def _await_ready(proc, port, what, t0, timeout=300.0) -> float:
+    """Seconds from ``t0`` to the daemon's /healthz 200."""
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"{what}: daemon exited {proc.returncode}")
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: not ready in {timeout} s")
+        try:
+            if _get(port, "/healthz")[0] == 200:
+                return time.perf_counter() - t0
+        except (urllib.error.URLError, ConnectionError, OSError):
+            time.sleep(0.2)
+
+
+def _stop_launched(proc, log_path, what, nproc, port) -> dict:
+    """SIGTERM to rank 0; every rank must exit 0 in step, rank 0 the only
+    one listening (on ``port``). Returns ``{rank: {"reduced_bytes",
+    "launches"}}`` from the stop lines of the log."""
+    import signal
+
+    with open(log_path) as f:
+        text = f.read()
+    pid = int(re.search(r"serves \(pid (\d+)\)", text).group(1))
+    os.kill(pid, signal.SIGTERM)
+    rc = proc.wait(timeout=180)
+    with open(log_path) as f:
+        text = f.read()
+    listening = re.findall(r"llm-serve listening on :(\d+)", text)
+    stops = [("0", *m) for m in re.findall(
+        r"every one in step \(rank 0: (\d+) bytes all-reduced in \d+ "
+        r"all-reduces\); kernel launches (\{.*?\})", text)]
+    stops += re.findall(r"rank (\d+) stopped after \d+ calls \((\d+) "
+                        r"bytes all-reduced in \d+ all-reduces\); kernel "
+                        r"launches (\{.*?\})", text)
+    by_rank = {int(r): {"reduced_bytes": int(b), "launches": json.loads(js)}
+               for r, b, js in stops}
+    if rc != 0 or listening != [str(port)] or \
+            sorted(by_rank) != list(range(nproc)):
+        raise AssertionError(f"{what}: rc {rc}, listening {listening}, "
+                             f"ranks stopped in step {sorted(by_rank)} "
+                             f"(log {log_path})")
+    return by_rank
+
+
+def _kill_launched(proc, log_path) -> None:
+    """Kill a launched daemon's process group and show its log's tail."""
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+    with open(log_path) as f:
+        print(f"{log_path} tail:\n{f.read()[-4000:]}", file=sys.stderr)
+
+
+def _handoff_tp_daemons(one_rank: dict) -> dict:
+    """A ``--role prefill`` daemon at 2 ranks and a ``--role decode``
+    daemon at 2 ranks fetching from it, both bf16 at the serving default
+    under ``torch.distributed.run``, without warmup (for time): serve_paged's
+    traffic through the decode daemon, every request handed off; one
+    more hop alone from this process (its seconds, its bundle's page
+    bytes, which must equal the one-rank pair's in serve_handoff); B2's
+    launches by replica and rank (the ranks of a replica equal); the
+    share of the decode daemon's texts the one-rank pair's agree with
+    (reported)."""
+    from k8s_device_plugin_tpu_torch.models import handoff as kv_handoff
+    from k8s_device_plugin_tpu_torch.models.tokenizer import ByteTokenizer
+
+    pre_port, dec_port = _free_port(), _free_port()
+    peer = f"http://127.0.0.1:{pre_port}"
+    t0 = time.perf_counter()
+    procs = {
+        "prefill": _launched_daemon("serve_handoff_tp_prefill", 2,
+                                    ["--role", "prefill", "--no-warmup"],
+                                    pre_port),
+        "decode": _launched_daemon("serve_handoff_tp_decode", 2,
+                                   ["--role", "decode", "--handoff-peer",
+                                    peer, "--no-warmup"], dec_port)}
+    try:
+        startup = {"prefill": _await_ready(procs["prefill"][0], pre_port,
+                                           "serve_handoff_tp prefill", t0),
+                   "decode": _await_ready(procs["decode"][0], dec_port,
+                                          "serve_handoff_tp decode", t0)}
+        _, before = _get(dec_port, "/metrics")
+        docs, completions, ttfts, wall = _paged_traffic(
+            dec_port, "serve_handoff_tp", logprobs=True)
+        _, after = _get(dec_port, "/metrics")
+        delta = _deltas(before, after)
+        imported = delta("tpu_serve_handoff_total",
+                         'role="decode",outcome="imported"')
+        fallback = delta("tpu_serve_handoff_total",
+                         'role="decode",outcome="fallback"')
+        client = kv_handoff.HandoffClient(kv_handoff.HTTPTransport(peer),
+                                          peer=peer)
+        ids = ByteTokenizer().encode(PAGED_PROMPTS[3])
+        t1 = time.perf_counter()
+        bundle = client.fetch({"tokens": ids,
+                               "max_new_tokens": SERVE_MAX_TOKENS})
+        hop_ms = (time.perf_counter() - t1) * 1e3
+        client.ack(bundle.lease_id)
+        page_bytes = _page_bytes(bundle)
+        ports = {"prefill": pre_port, "decode": dec_port}
+        launches = {role: {r: v["launches"] for r, v in _stop_launched(
+            proc, log, f"serve_handoff_tp {role}", 2, ports[role]).items()}
+            for role, (proc, log) in procs.items()}
+    except BaseException:
+        for proc, log in procs.values():
+            _kill_launched(proc, log)
+        raise
+    n = len(PAGED_PROMPTS)
+    b2 = {role: [v["paged_attn"] for v in by_rank.values()]
+          for role, by_rank in launches.items()}
+    if imported != n or fallback or page_bytes != one_rank["page_bytes"] \
+            or any(len(set(v)) != 1 for v in b2.values()):
+        raise AssertionError(
+            f"serve_handoff_tp daemons: {imported} imported, {fallback} "
+            f"fallbacks for {n} requests; bundle page bytes {page_bytes} "
+            f"vs one rank's {one_rank['page_bytes']}; B2 by replica and "
+            f"rank {b2}")
+    texts = [list(d["choices"][0]["text"]) for d in docs[1:]]
+    return {"ranks": {"prefill": 2, "decode": 2}, "startup_s": startup,
+            "completion_tokens": completions, "ttft_s": ttfts,
+            "wall_s": wall,
+            "aggregate_tokens_per_s": sum(completions) / wall,
+            "handed_off": imported, "hop_alone_ms": hop_ms,
+            "bundle": {"prompt_tokens": len(ids), "pages": bundle.num_pages,
+                       "bytes": len(bundle.to_bytes()),
+                       "page_bytes": page_bytes,
+                       "one_rank_page_bytes": one_rank["page_bytes"],
+                       "one_rank_bytes": one_rank["bytes"]},
+            "launches_by_replica_and_rank": launches,
+            "text_agreement_with_one_rank_pair": _agreement(
+                texts, one_rank["texts"]),
+            "exit_codes": [0, 0]}
+
+
+def phase_serve_handoff_tp(one_rank: dict) -> dict:
+    """The prefill/decode roles over dp x tp ranks sharing the card
+    (gloo): the pairings in float32 in process, then a bf16 daemon pair
+    at 2 ranks each beside serve_handoff's one-rank pair (``one_rank``:
+    its bundle and texts)."""
+    from k8s_device_plugin_tpu_torch.ops import _build
+    from k8s_device_plugin_tpu_torch.parallel import launch, workers
+
+    t0 = time.perf_counter()
+    for lib in ("flash_fwd", "paged_attn"):
+        _build.load(lib)  # built here, so the ranks only open them
+    line = {"phase": "serve_handoff_tp", "ok": True,
+            "note": "ranks share one card over gloo: speeds are not results"}
+    line["exactness"] = _handoff_tp_exactness(launch, workers)
+    line["daemons"] = _handoff_tp_daemons(one_rank)
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
+# ---------------------------------------------------------------------------
+# train_pp: pipeline-parallel LM training (the lm-train-pp and
+# lm-train-pp-tp pods)
+# ---------------------------------------------------------------------------
+
+# lm-train-pp's width (transformer_pp.main: embed 1024, 8 heads, mlp
+# 4096, seq 2048, vocab 32000) cut to 4 layers; lm-train-pp-tp's has 16
+# heads. float32, batch 4, seed-0 weights and batch.
+TRAIN_PP_LAYERS = 4
+TRAIN_PP_BATCH = 4
+# (layout, trainer, axes, shape, microbatches, chunks, fused): M = 4, or 2
+# under dp (a microbatch of one row does not split over dp2)
+TRAIN_PP_LAYOUTS = (
+    ("pp4", "pp", ("pp",), (4,), 4, 1, False),
+    ("pp2_chunks2", "pp", ("pp",), (2,), 4, 2, False),
+    ("dp2_pp2", "pp", ("dp", "pp"), (2, 2), 2, 1, False),
+    ("pp2_tp2", "tp", ("pp", "tp"), (2, 2), 4, 1, False),
+    ("dp2_pp2_tp2_fused", "tp", ("dp", "pp", "tp"), (2, 2, 2), 2, 1, True),
+)
+# |fused - unfused| of the parameters after one step (the same gradients
+# and AdamW update, applied in the drain or after it)
+TRAIN_PP_FUSED_TOL = 1e-6
+TRAIN_PP_PODS = (
+    ("lm-train-pp", "transformer_pp", 4,
+     ["--steps", "5", "--batch", "8", "--microbatches", "4"]),
+    ("lm-train-pp-tp", "transformer_tp", 8,
+     ["--steps", "5", "--batch", "8", "--microbatches", "4", "--dp", "2",
+      "--tp", "2", "--chunks", "2", "--fuse-update"]),
+)
+
+
+def _train_pp_case(name, trainer, axes, shape, m, chunks, fused) -> dict:
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models.transformer import LMConfig
+
+    cfg = LMConfig(num_layers=TRAIN_PP_LAYERS, embed_dim=1024, mlp_dim=4096,
+                   num_heads=16 if trainer == "tp" else 8,
+                   max_seq_len=2048, dtype=torch.float32)
+    return dict(name=name, trainer=trainer, axes=axes, shape=shape,
+                config=cfg.to_json_dict(), microbatches=m, chunks=chunks,
+                fused=fused, batch=TRAIN_PP_BATCH, seed=0)
+
+
+def _train_pp_exactness(launch, workers) -> dict:
+    """Each TRAIN_PP_LAYOUTS step through ``workers.pp_train`` on the
+    card, every rank against one device's autograd of the whole model
+    (transformer_pp.reference_loss): loss within workers.PP_LOSS_TOL and
+    every gradient within workers.PP_GRAD_TOL (allclose), each rank's
+    B1 launched 2·M·L/S times and B3, B4 M·L/S times; the fused layout's
+    step equal to the unfused one's."""
+    out, problems = {}, []
+    # one spawn for every layout: a layout on fewer ranks leaves the rest
+    # idle (workers.pp_train's build_submesh)
+    world = max(int(math.prod(c[3])) for c in TRAIN_PP_LAYOUTS)
+    cases = [_train_pp_case(*c) for c in TRAIN_PP_LAYOUTS]
+    t0 = time.perf_counter()
+    ranks = launch.spawn(workers.pp_train, world, cases, "cuda", True,
+                         device="cuda", timeout=600)
+    out[f"spawn_s_world{world}"] = time.perf_counter() - t0
+    for (name, trainer, axes, shape, m, chunks, fused) in \
+            TRAIN_PP_LAYOUTS:
+        per_rank = [r[name] for r in ranks[:int(math.prod(shape))]]
+        stages = dict(zip(axes, shape))["pp"]
+        per_layer = TRAIN_PP_LAYERS // stages
+        want = {"flash_fwd": 2 * m * per_layer,
+                "flash_bwd_dq": m * per_layer,
+                "flash_bwd_dkv": m * per_layer}
+        for r, res in enumerate(per_rank):
+            e = res["errors"]
+            if e["loss_ratio"] > 1 or max(e["embed"], e["head"],
+                                          e["blocks"]) > 1:
+                problems.append(f"{name} rank {r}: {e}")
+            if res["launches"] != want:
+                problems.append(f"{name} rank {r}: launches "
+                                f"{res['launches']}, want {want}")
+            if fused and not res["fused_minus_unfused"] <= \
+                    TRAIN_PP_FUSED_TOL:
+                problems.append(f"{name} rank {r}: fused step differs "
+                                f"by {res['fused_minus_unfused']}")
+        out[name] = {
+            "trainer": trainer, "mesh": dict(zip(axes, shape)),
+            "microbatches": m, "chunks": chunks, "fused": fused,
+            "loss": per_rank[0]["loss"],
+            "one_device_loss": per_rank[0]["errors"]["loss"],
+            "loss_abs_err": max(r["errors"]["loss_abs_err"]
+                                for r in per_rank),
+            "grad_allclose_ratio": max(
+                max(r["errors"][k] for k in ("embed", "head", "blocks"))
+                for r in per_rank),
+            "fused_minus_unfused": [r.get("fused_minus_unfused")
+                                    for r in per_rank] if fused else None,
+            "launches_by_rank": [r["launches"] for r in per_rank],
+            "launches_want": want,
+            "step_s_by_rank": [r["seconds"] for r in per_rank]}
+    if problems:
+        raise AssertionError(f"train_pp: {problems}\n{json.dumps(out)}")
+    return out
+
+
+def _train_pp_pod(prog: str, module: str, nproc: int, argv: list) -> dict:
+    """A pod's command under ``python -m torch.distributed.run`` at
+    ``nproc`` ranks on the card (bf16, full width): the reference's
+    lines on rank 0, a finite final loss below the first step's, and
+    every rank holding the same embedding and head."""
+    env = {**os.environ, "PYTHONPATH": HERE, "OMP_NUM_THREADS": "1"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), "-m",
+         f"k8s_device_plugin_tpu_torch.models.{module}", *argv],
+        env=env, cwd=HERE, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    text = proc.stdout
+    with open(os.path.join(HERE, "build", f"train_pp_{module}.log"),
+              "w") as f:
+        f.write(text + proc.stderr)
+    mesh = re.search(rf"{prog}: mesh (\{{.*?\}}) config", text)
+    first = re.search(rf"{prog}: first step loss=(\S+)", text)
+    final = re.search(rf"{prog}: (\d+) steps wall=([\d.]+)s tokens/s=(\d+) "
+                      rf"loss=([-\w.]+)", text)
+    digests = re.findall(rf"{prog}: rank (\d+) embed\+head sha256="
+                         rf"([0-9a-f]{{64}})", text)
+    ok = (proc.returncode == 0 and mesh and first and final
+          and math.isfinite(float(final.group(4)))
+          and float(final.group(4)) < float(first.group(1))
+          and len(digests) == nproc and len({d for _, d in digests}) == 1)
+    if not ok:
+        raise AssertionError(f"train_pp {prog}: rc {proc.returncode}:\n"
+                             f"{text[-3000:]}\n{proc.stderr[-3000:]}")
+    return {"argv": argv, "ranks": nproc, "mesh": mesh.group(1),
+            "line": final.group(0), "steps": int(final.group(1)),
+            "wall_s": float(final.group(2)),
+            "tokens_per_s": int(final.group(3)),
+            "first_loss": float(first.group(1)),
+            "final_loss": float(final.group(4)),
+            "replicated_digest": digests[0][1],
+            "process_wall_s": wall}
+
+
+def phase_train_pp() -> dict:
+    """Pipeline-parallel LM training over ranks sharing the card (gloo):
+    float32 exactness of the five layouts against one device, then the
+    lm-train-pp and lm-train-pp-tp pods' commands at full width."""
+    from k8s_device_plugin_tpu_torch.ops import _build
+    from k8s_device_plugin_tpu_torch.parallel import launch, workers
+
+    t0 = time.perf_counter()
+    for lib in ("flash_fwd", "flash_bwd"):
+        _build.load(lib)  # built here, so the ranks only open them
+    line = {"phase": "train_pp", "ok": True,
+            "note": "ranks share one card over gloo: speeds are not results"}
+    line["exactness"] = _train_pp_exactness(launch, workers)
+    line["pods"] = {prog: _train_pp_pod(prog, module, n, argv)
+                    for prog, module, n, argv in TRAIN_PP_PODS}
     line["seconds"] = time.perf_counter() - t0
     return line
 
@@ -3803,6 +4312,7 @@ def main() -> int:
     paged_summary["combine_launches_spec"] = \
         serve_spec["launches"]["paged_attn_combine"]
     serve_handoff = phase_serve_handoff(paged_counters, paged_tokens)
+    handoff_texts = serve_handoff.pop("texts")
     _jline(serve_handoff)
     serve_static = phase_serve_static(paged_counters, serve_tokens)
     _jline(serve_static)
@@ -3835,6 +4345,17 @@ def main() -> int:
             case: [n[k] for n in c["launches_by_rank"]]
             for case, c in serve_tp["exactness"].items()
             if isinstance(c, dict)}
+    handoff_tp = phase_serve_handoff_tp(
+        dict(serve_handoff["bundle"], texts=handoff_texts))
+    _jline(handoff_tp)
+    paged_summary["launches_handoff_tp_by_rank"] = {
+        case: c["launches_by_rank"]
+        for case, c in handoff_tp["exactness"].items()
+        if isinstance(c, dict)}
+    paged_summary["launches_handoff_tp_daemons_by_replica_and_rank"] = {
+        role: {r: n["paged_attn"] for r, n in by_rank.items()}
+        for role, by_rank in
+        handoff_tp["daemons"]["launches_by_replica_and_rank"].items()}
     train = phase_train()
     _jline(train)
     launches = train["benchmark"]["launches"]
@@ -3848,6 +4369,13 @@ def main() -> int:
         s["launches_train_parallel"] = {
             name: step["launches_by_rank"][s["name"]]
             for name, step in parallel["steps"].items()}
+    train_pp = phase_train_pp()
+    _jline(train_pp)
+    for s in (summary, *bwd_summaries):
+        s["launches_train_pp_by_rank"] = {
+            name: [n[s["name"]] for n in c["launches_by_rank"]]
+            for name, c in train_pp["exactness"].items()
+            if isinstance(c, dict)}
     _jline(phase_convnets([*_train_counters(), *paged_counters[1:]]))
     print(smi_line(), flush=True)
     _jline({"kernels": [summary, *bwd_summaries, paged_summary]})

@@ -57,50 +57,71 @@ def _t(a, dtype) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, dtype=np.float32).copy()).to(dtype)
 
 
+def _dense_from_jax(sd, prefix, node, dt, kind="dense"):
+    """One flax Dense / DenseGeneral node (any leading dims) into ``sd``:
+    ``kind`` "qkv" ([..., E, H, D] -> [..., E, H*D], bias [..., H, D]
+    -> [..., H*D]), "out" ([..., H, D, E] -> [..., H*D, E]) or "dense"
+    (kept)."""
+    k = np.asarray(node["kernel"])
+    if kind == "qkv":
+        k = k.reshape(k.shape[:-2] + (-1,))
+    elif kind == "out":
+        k = k.reshape(k.shape[:-3] + (-1, k.shape[-1]))
+    sd[f"{prefix}.kernel"] = _t(k, dt)
+    if "bias" in node:
+        b = np.asarray(node["bias"])
+        if kind == "qkv":
+            b = b.reshape(b.shape[:-2] + (-1,))
+        sd[f"{prefix}.bias"] = _t(b, dt)
+
+
+def _norm_from_jax(sd, prefix, node):
+    sd[f"{prefix}.scale"] = _t(node["scale"], torch.float32)
+    if "bias" in node:
+        sd[f"{prefix}.bias"] = _t(node["bias"], torch.float32)
+
+
+def block_from_jax(node: dict, config: LMConfig, param_dtype=None,
+                   prefix: str = "") -> dict:
+    """One flax ``Block`` tree (numpy leaves, any stacked leading dims:
+    the pipelines' ``[stages, layers per stage, ...]``) -> the port's
+    ``Block`` state names (``attn.wq.kernel``, ``ln1.scale``, ...), each
+    leaf keeping its leading dims. Weights in ``param_dtype`` (None:
+    ``config.dtype``); norms float32."""
+    dt = param_dtype or config.dtype
+    sd: dict[str, torch.Tensor] = {}
+    for name in ("wq", "wk", "wv"):
+        _dense_from_jax(sd, f"{prefix}attn.{name}", node["attn"][name], dt,
+                        "qkv")
+    _dense_from_jax(sd, f"{prefix}attn.wo", node["attn"]["wo"], dt, "out")
+    if config.num_experts > 0:
+        moe = node["moe"]
+        sd[f"{prefix}moe.router.kernel"] = _t(moe["router"]["kernel"],
+                                              torch.float32)
+        sd[f"{prefix}moe.wi"] = _t(moe["wi"], dt)
+        sd[f"{prefix}moe.wo"] = _t(moe["wo"], dt)
+    else:
+        for name in _dense_names(config):
+            _dense_from_jax(sd, f"{prefix}mlp.{name}", node["mlp"][name], dt)
+    _norm_from_jax(sd, f"{prefix}ln1", node["ln1"])
+    _norm_from_jax(sd, f"{prefix}ln2", node["ln2"])
+    return sd
+
+
 def params_from_jax(tree: dict, config: LMConfig, param_dtype=None) -> dict:
     """flax param tree (numpy leaves) -> DecoderLM state_dict, weights in
     ``param_dtype`` (None: ``config.dtype``, the serving layout)."""
     dt = param_dtype or config.dtype
     sd: dict[str, torch.Tensor] = {}
-
-    def dense(prefix, node, flatten_in=False):
-        k = np.asarray(node["kernel"])
-        if flatten_in:                       # wo: [H, D, E] -> [H*D, E]
-            k = k.reshape(-1, k.shape[-1])
-        else:                                # [E, ...] -> [E, prod(...)]
-            k = k.reshape(k.shape[0], -1)
-        sd[f"{prefix}.kernel"] = _t(k, dt)
-        if "bias" in node:
-            sd[f"{prefix}.bias"] = _t(np.asarray(node["bias"]).reshape(-1), dt)
-
-    def norm(prefix, node):
-        sd[f"{prefix}.scale"] = _t(node["scale"], torch.float32)
-        if "bias" in node:
-            sd[f"{prefix}.bias"] = _t(node["bias"], torch.float32)
-
     sd["embed"] = _t(tree["embed"]["embedding"], dt)
     if config.position == "learned":
         sd["pos_embed"] = _t(tree["pos_embed"]["embedding"], dt)
     for i in range(config.num_layers):
-        layer = tree[f"layer{i}"]
-        p = f"layers.{i}"
-        for name in ("wq", "wk", "wv"):
-            dense(f"{p}.attn.{name}", layer["attn"][name])
-        dense(f"{p}.attn.wo", layer["attn"]["wo"], flatten_in=True)
-        if config.num_experts > 0:
-            moe = layer["moe"]
-            sd[f"{p}.moe.router.kernel"] = _t(moe["router"]["kernel"],
-                                              torch.float32)
-            sd[f"{p}.moe.wi"] = _t(moe["wi"], dt)
-            sd[f"{p}.moe.wo"] = _t(moe["wo"], dt)
-        else:
-            for name in _dense_names(config):
-                dense(f"{p}.mlp.{name}", layer["mlp"][name])
-        norm(f"{p}.ln1", layer["ln1"])
-        norm(f"{p}.ln2", layer["ln2"])
-    norm("ln_f", tree["ln_f"])
+        sd.update(block_from_jax(tree[f"layer{i}"], config, param_dtype,
+                                 prefix=f"layers.{i}."))
+    _norm_from_jax(sd, "ln_f", tree["ln_f"])
     if not config.tie_embeddings:
-        dense("lm_head", tree["lm_head"])
+        _dense_from_jax(sd, "lm_head", tree["lm_head"], dt)
     return sd
 
 
@@ -109,58 +130,105 @@ def _dense_names(config: LMConfig) -> tuple[str, ...]:
         else ("wi", "down_proj")
 
 
+def block_to_jax(state: dict, config: LMConfig, prefix: str = "") -> dict:
+    """The inverse of ``block_from_jax``: the port's ``Block`` names
+    (tensors of any leading dims, such as gradients) -> a flax ``Block``
+    tree of float32 numpy leaves."""
+    hd = config.head_dim
+
+    def arr(name):
+        return state[prefix + name].detach().float().cpu().numpy()
+
+    def dense(name, heads=None, out_heads=False):
+        node = {}
+        k = arr(f"{name}.kernel")
+        if out_heads:                      # [..., H*D, E] -> [..., H, D, E]
+            k = k.reshape(k.shape[:-2] + (-1, hd, k.shape[-1]))
+        elif heads is not None:            # [..., E, H*D] -> [..., E, H, D]
+            k = k.reshape(k.shape[:-1] + (heads, hd))
+        node["kernel"] = k
+        if prefix + f"{name}.bias" in state:
+            b = arr(f"{name}.bias")
+            node["bias"] = (b.reshape(b.shape[:-1] + (heads, hd))
+                            if heads is not None else b)
+        return node
+
+    def norm(name):
+        node = {"scale": arr(f"{name}.scale")}
+        if prefix + f"{name}.bias" in state:
+            node["bias"] = arr(f"{name}.bias")
+        return node
+
+    out = {"attn": {"wq": dense("attn.wq", config.num_heads),
+                    "wk": dense("attn.wk", config.kv_heads),
+                    "wv": dense("attn.wv", config.kv_heads),
+                    "wo": dense("attn.wo", out_heads=True)},
+           "ln1": norm("ln1"), "ln2": norm("ln2")}
+    if config.num_experts > 0:
+        out["moe"] = {"router": {"kernel": arr("moe.router.kernel")},
+                      "wi": arr("moe.wi"), "wo": arr("moe.wo")}
+    else:
+        out["mlp"] = {name: dense(f"mlp.{name}")
+                      for name in _dense_names(config)}
+    return out
+
+
 def params_to_jax(state_dict: dict, config: LMConfig) -> dict:
     """DecoderLM state_dict (either layout, or any tensors of the same
     names and shapes, such as gradients) -> flax param tree with float32
     numpy leaves, the inverse of ``params_from_jax``."""
-    hd = config.head_dim
-
     def arr(name):
         return state_dict[name].detach().float().cpu().numpy()
-
-    def dense(prefix, heads=None, out_heads=False):
-        node = {}
-        k = arr(f"{prefix}.kernel")
-        if out_heads:                        # wo: [H*D, E] -> [H, D, E]
-            k = k.reshape(-1, hd, k.shape[-1])
-        elif heads is not None:              # q/k/v: [E, H*D] -> [E, H, D]
-            k = k.reshape(k.shape[0], heads, hd)
-        node["kernel"] = k
-        if f"{prefix}.bias" in state_dict:
-            b = arr(f"{prefix}.bias")
-            node["bias"] = b.reshape(heads, hd) if heads is not None else b
-        return node
-
-    def norm(prefix):
-        node = {"scale": arr(f"{prefix}.scale")}
-        if f"{prefix}.bias" in state_dict:
-            node["bias"] = arr(f"{prefix}.bias")
-        return node
 
     tree = {"embed": {"embedding": arr("embed")}}
     if config.position == "learned":
         tree["pos_embed"] = {"embedding": arr("pos_embed")}
     for i in range(config.num_layers):
-        p = f"layers.{i}"
-        attn = {
-            "wq": dense(f"{p}.attn.wq", config.num_heads),
-            "wk": dense(f"{p}.attn.wk", config.kv_heads),
-            "wv": dense(f"{p}.attn.wv", config.kv_heads),
-            "wo": dense(f"{p}.attn.wo", out_heads=True),
-        }
-        tree[f"layer{i}"] = {"attn": attn,
-                             "ln1": norm(f"{p}.ln1"), "ln2": norm(f"{p}.ln2")}
-        if config.num_experts > 0:
-            tree[f"layer{i}"]["moe"] = {
-                "router": {"kernel": arr(f"{p}.moe.router.kernel")},
-                "wi": arr(f"{p}.moe.wi"), "wo": arr(f"{p}.moe.wo")}
-        else:
-            tree[f"layer{i}"]["mlp"] = {
-                name: dense(f"{p}.mlp.{name}") for name in _dense_names(config)}
-    tree["ln_f"] = norm("ln_f")
+        tree[f"layer{i}"] = block_to_jax(state_dict, config,
+                                         prefix=f"layers.{i}.")
+    tree["ln_f"] = {"scale": arr("ln_f.scale")}
+    if "ln_f.bias" in state_dict:
+        tree["ln_f"]["bias"] = arr("ln_f.bias")
     if not config.tie_embeddings:
-        tree["lm_head"] = dense("lm_head")
+        tree["lm_head"] = {"kernel": arr("lm_head.kernel")}
+        if "lm_head.bias" in state_dict:
+            tree["lm_head"]["bias"] = arr("lm_head.bias")
     return tree
+
+
+# ---------------------------------------------------------------------------
+# the pipelined trainers' trees (models/transformer_pp.py, transformer_tp.py)
+# ---------------------------------------------------------------------------
+
+def _leaves(node: dict) -> dict:
+    return {k: torch.from_numpy(np.asarray(v, dtype=np.float32).copy())
+            for k, v in node.items()}
+
+
+def pp_params_from_jax(tree: dict, config: LMConfig) -> dict:
+    """The reference's pipelined tree (transformer_pp.init_pp_params:
+    ``{"embed", "blocks": a flax Block tree stacked [S*V, layers per
+    virtual stage, ...] rank-major, "head"}``, numpy leaves) -> the
+    port's whole tree of float32 tensors: ``blocks`` by the port's Block
+    names, still stacked [S*V, ...]; ``embed`` and ``head`` under the
+    reference's leaf names. ``pipeline.shard_stage_params`` (the
+    trainer's ``init_fn(params=...)``) gives each rank its rows."""
+    return {"embed": _leaves(tree["embed"]),
+            "blocks": block_from_jax(tree["blocks"], config,
+                                     torch.float32),
+            "head": _leaves(tree["head"])}
+
+
+def tp_params_from_jax(tree: dict) -> dict:
+    """The reference's pp x tp tree (``{"embed", "blocks": {ln1_scale,
+    ln2_scale, wq/wk/wv [.., e, h, d], wo [.., h, d, e], wi, down}
+    stacked [S*V, layers per virtual stage, ...], "head"}``, numpy
+    leaves) -> the port's whole tree of float32 tensors, the same names
+    and shapes (transformer_tp's block keeps the reference's layout).
+    The trainer's ``init_fn(params=...)`` gives each rank its rows and,
+    over tp, its heads and MLP columns."""
+    return {part: _leaves(tree[part]) for part in ("embed", "blocks",
+                                                   "head")}
 
 
 CONFIG_FILE = "lm_config.json"

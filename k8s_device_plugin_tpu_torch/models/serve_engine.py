@@ -207,6 +207,20 @@ def _held_rows(arguments, out, steps_first: bool = False):
     return toks[:, held] if steps_first else toks[held]
 
 
+def _bundle_digest(arguments, out):
+    """What the ranks agree on after ``export_pages``: the sha256 of the
+    whole bundle each assembled (the same within a tp group by
+    construction; across dp replicas only when they hold the same
+    pages)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for layer in sorted(out):
+        for leaf in ("k_pages", "v_pages"):
+            h.update(out[layer]["attn"][leaf].tobytes())
+    return list(h.digest())
+
+
 def default_config():
     """The daemon's model without --tiny: 8 layers, embed 1024, 16 heads,
     mlp 4096, max_seq 1024, vocab 32000, bf16 (the reference's default)."""
@@ -1137,14 +1151,33 @@ class LMServer:
             pool, _long(src, dev), _long(dst, dev),
         )
 
-    def _whole_pages(self, what: str) -> None:
-        """Page bundles carry every kv head: a rank of a tp mesh holds
-        only its own (ROADMAP A8 queues the gather and the slice)."""
-        if self.plan is not None:
-            raise NotImplementedError(
-                f"page {what} on a {self.mesh.shape} mesh: handoff bundles "
-                f"need whole pages (ROADMAP A8)")
+    def _kv_sources(self) -> list:
+        """For each kv head of the model, ``(tp coordinate, index)`` of
+        one tp rank's KV that holds it, by ``cache_kv_layout`` applied to
+        every tp coordinate: the rank whose kv heads divide to it
+        (*split*), the first of those sharing it (*shared*), or, where a
+        rank holds one copy per q head (*expand*), the copy of the kv
+        head's first q head."""
+        from k8s_device_plugin_tpu_torch.models.transformer import (
+            cache_kv_layout,
+        )
 
+        cfg = self.config
+        n_rep = cfg.num_heads // cfg.kv_heads
+        layouts = [cache_kv_layout(cfg, self.plan, t)
+                   for t in range(self.mesh.size("tp"))]
+        out = []
+        for h in range(cfg.kv_heads):
+            for t, (first, heads, expand) in enumerate(layouts):
+                j = (h * n_rep if expand else h) - first
+                if 0 <= j < heads:
+                    out.append((t, j))
+                    break
+            else:
+                raise RuntimeError(f"no tp rank holds kv head {h}")
+        return out
+
+    @mirrored(_bundle_digest)
     @torch.inference_mode()
     def export_pages(self, pool, page_ids):
         """Gather the K/V contents of ``page_ids`` to host for handoff.
@@ -1157,10 +1190,20 @@ class LMServer:
         bucket with scratch-page reads trimmed from the host result.
         The pool is only read: the exporter keeps serving from it while
         the handoff lease is pending, and releases the pages on the
-        decode ack (or lease expiry)."""
-        from k8s_device_plugin_tpu_torch.models.handoff import host_array
+        decode ack (or lease expiry).
 
-        self._whole_pages("export")
+        On a tp mesh a rank holds only its kv heads: the pages are
+        gathered over the tp group (every rank of a dp replica takes
+        part, and each replica gathers its own), and each kv head is
+        taken from one rank that holds it (``_kv_sources``), so the
+        bundle holds whole pages, byte for byte what one device would
+        export from the same pool contents. Rank 0's comes from its own
+        replica; the ranks agree on the bundle's digest
+        (``_bundle_digest``), which holds the dp replicas to the same
+        pages."""
+        from k8s_device_plugin_tpu_torch.models.handoff import host_array
+        from k8s_device_plugin_tpu_torch.parallel import comm
+
         n = self._bucket(len(page_ids), 1, None)
         ids = list(page_ids) + [0] * (n - len(page_ids))
 
@@ -1175,8 +1218,12 @@ class LMServer:
         out = self._dispatch(
             "page_export", self._paged_cache, ("export", n), build,
             pool, _long(ids, self.device),
-        )
-        host = host_array(out)[:, :len(page_ids)]
+        )[:, :len(page_ids)]
+        if self.plan is not None:
+            parts = comm.all_gather(out.contiguous(), self.mesh.group("tp"))
+            out = torch.stack([parts[t][..., j, :]
+                               for t, j in self._kv_sources()], dim=-2)
+        host = host_array(out)
         layers = len(pool.k_pages)
         return {
             f"layer{i}": {"attn": {"k_pages": host[i],
@@ -1184,19 +1231,24 @@ class LMServer:
             for i in range(layers)
         }
 
+    @mirrored()
     @torch.inference_mode()
     def import_pages(self, pool, page_ids, payload):
         """Scatter a handed-off page block into ``page_ids``, in place.
 
         ``payload`` is the pool-shaped host tree of :meth:`export_pages`
-        (leaves ``[len(page_ids), ...]``). Ids pad to a power-of-two
-        bucket with zero-writes to the scratch page (page 0 is never
-        allocated, so the padding is a no-op by construction). A payload
+        (leaves ``[len(page_ids), page_tokens, kv_heads, head_dim]``,
+        whole pages). Ids pad to a power-of-two bucket with zero-writes
+        to the scratch page (page 0 is never allocated, so the padding
+        is a no-op by construction). On a tp mesh every rank receives
+        the whole block (the mirrored call carries it) and keeps the kv
+        heads its pool holds (``cache_kv_layout``; one copy per q head,
+        ``repeat_kv``'s expansion, where the layout expands). A payload
         that is not shaped like the pool raises ValueError or
         RuntimeError."""
         from k8s_device_plugin_tpu_torch.models.handoff import to_tensor
 
-        self._whole_pages("import")
+        cfg = self.config
         n = self._bucket(len(page_ids), 1, None)
         ids = list(page_ids) + [0] * (n - len(page_ids))
         layers = len(pool.k_pages)
@@ -1207,6 +1259,16 @@ class LMServer:
         except KeyError as e:
             raise ValueError(f"page block lacks {e}") from e
         src = torch.stack([to_tensor(a) for a in leaves])
+        if tuple(src.shape[-2:]) != (cfg.kv_heads, cfg.head_dim):
+            raise ValueError(
+                f"page block of {tuple(src.shape[-2:])} (kv heads, head "
+                f"dim); the model's pages hold "
+                f"{(cfg.kv_heads, cfg.head_dim)}")
+        first, heads, expand = self.model.layers[0].attn.cache_kv
+        if expand:
+            src = src.repeat_interleave(cfg.num_heads // cfg.kv_heads,
+                                        dim=-2)
+        src = src[..., first:first + heads, :]
         if n != len(page_ids):
             pad = src.new_zeros((src.shape[0], n - len(page_ids))
                                 + src.shape[2:])

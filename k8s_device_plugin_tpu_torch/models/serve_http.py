@@ -37,8 +37,13 @@ rank 0 drains as on one rank, then stops the followers; they ignore
 SIGTERM themselves (a launcher that forwards it to every rank would
 otherwise cut the drain short), and every rank exits 0. A rank that
 raises or dies stops the daemon with a non-zero exit. ``--role
-prefill|decode`` runs on one rank only (ROADMAP A8). Without
-``WORLD_SIZE > 1`` it is the one-rank daemon.
+prefill|decode`` runs on any mesh: the handoff machinery (leases, the
+client, the ``/v1/handoff/*`` routes, the handoff metrics) stays on rank
+0, and a bundle carries whole pages, gathered over tp on export and
+sliced to each rank's kv heads on import (serve_engine.py
+``export_pages`` / ``import_pages``), so a replica of any world size
+pairs with one of any other. Without ``WORLD_SIZE > 1`` it is the
+one-rank daemon.
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ from k8s_device_plugin_tpu_torch.models.serve_engine import (
 from k8s_device_plugin_tpu_torch.obs import ledger as obs_ledger
 from k8s_device_plugin_tpu_torch.obs import metrics as obs_metrics
 from k8s_device_plugin_tpu_torch.obs import trace as obs_trace
+from k8s_device_plugin_tpu_torch.parallel.mesh import leave_process_group
 
 log = logging.getLogger("llm-serve")
 
@@ -611,11 +617,6 @@ def main(argv=None, on_ready=None) -> int:
     if args.role != "both":
         # Fail at the flag layer, not deep in batcher construction: a
         # Helm values typo should print the contract, not a traceback.
-        if world > 1:
-            parser.error("--role prefill/decode runs on one rank: under "
-                         "tensor parallelism a handoff bundle needs whole "
-                         "pages (a tp gather on export, a slice on "
-                         "import), queued in ROADMAP A8")
         if args.batching != "continuous" or args.kv_cache != "paged":
             parser.error("--role prefill/decode requires --batching "
                          "continuous and --kv-cache paged (page blocks "
@@ -731,7 +732,7 @@ def main(argv=None, on_ready=None) -> int:
     in_step = True
     if ranked is not None:
         in_step = server.stop()
-        _leave_group()
+        leave_process_group()
     rc = 0 if drained and in_step else 1
     log_event("llm-serve", "close", rc=rc,
               note=None if rc == 0 else
@@ -753,13 +754,6 @@ def _server(args) -> LMServer:
     return LMServer(config=config, checkpoint=args.checkpoint,
                     device=args.device,
                     compile_cache_dir=args.compile_cache_dir)
-
-
-def _leave_group() -> None:
-    import torch.distributed as dist
-
-    if dist.is_initialized():
-        dist.destroy_process_group()
 
 
 def _follow(args) -> int:
@@ -784,7 +778,7 @@ def _follow(args) -> int:
         log.exception("rank %d: the serving ranks broke",
                       server.mesh.rank)
         return 1
-    _leave_group()
+    leave_process_group()
     return 0
 
 

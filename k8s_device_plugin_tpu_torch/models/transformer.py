@@ -190,9 +190,10 @@ class KVCache:
     idx: torch.Tensor
 
 
-def cache_kv_layout(config: LMConfig, plan=None) -> tuple:
+def cache_kv_layout(config: LMConfig, plan=None, tp=None) -> tuple:
     """``(first, heads, expand)``: the kv heads one rank's KV cache holds,
-    ``[first, first + heads)`` of the model's, for the q heads it runs.
+    ``[first, first + heads)`` of the model's, for the q heads it runs
+    (the rank at tp coordinate ``tp``: this one's when None).
 
     Without a plan, or where tp does not split the q heads, that is
     every kv head. Where the kv heads divide over tp, the rank's own.
@@ -205,7 +206,7 @@ def cache_kv_layout(config: LMConfig, plan=None) -> tuple:
     and B2 read kv heads in place only at one ``n_rep``."""
     if plan is None or not plan.split["attn"]:
         return 0, config.kv_heads, False
-    tp = plan.mesh.coord("tp")
+    tp = plan.mesh.coord("tp") if tp is None else tp
     if plan.split["kv"]:
         heads = plan.width(config.kv_heads, "kv")
         return tp * heads, heads, False

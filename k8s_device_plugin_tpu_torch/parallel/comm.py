@@ -16,7 +16,12 @@ group, with its backward:
   backward) enters a split region from a replicated tensor, and
   ``reduce_from_group`` (g: all-reduce forward, identity backward)
   leaves it.
+- ``psum``: JAX's ``lax.psum``: all-reduce forward, and all-reduce
+  backward (its transpose), so cotangents stay per-rank partials until
+  they cross it (the pipeline's tp calculus, parallel/pipeline_1f1b.py).
 - ``all_reduce``: in place, no autograd (gradients, scalars, flags).
+- ``all_gather``: every rank's tensor, no autograd (the serving
+  ranks' KV pages for a handoff bundle, models/serve_engine.py).
 
 A group of one rank (or None) makes each of them the identity. bfloat16
 and float16 tensors are reduced in float32 and rounded once.
@@ -167,6 +172,17 @@ class _ReduceFromGroup(torch.autograd.Function):
         return g, None
 
 
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.group), None
+
+
 def ring_shift(x: torch.Tensor, group, step: int = 1) -> torch.Tensor:
     """``x`` of the rank ``step`` places before this one in ``group``
     (this rank's goes ``step`` places on); differentiable."""
@@ -198,6 +214,30 @@ def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
     if group_size(group) == 1:
         return x
     return _ReduceFromGroup.apply(x, group)
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``lax.psum``: sum over ``group`` forward; the backward sums the
+    cotangents over the group too (psum's transpose)."""
+    if group_size(group) == 1:
+        return x
+    return _Psum.apply(x, group)
+
+
+def all_gather(x: torch.Tensor, group) -> list:
+    """Every rank's ``x`` (one shape on every rank), in the group's rank
+    order, on ``x``'s device; no autograd. The bytes travel as they are
+    (bit-exact for any dtype)."""
+    n = group_size(group)
+    if n == 1:
+        return [x]
+    staged = _staged(group, x)
+    src = _to_host(x) if staged else x.contiguous()
+    words = src.reshape(-1).view(torch.uint8)
+    out = [torch.empty_like(words) for _ in range(n)]
+    dist.all_gather(out, words, group=group)
+    out = [t.view(x.dtype).view(x.shape) for t in out]
+    return [_to_device(t, x.device) for t in out] if staged else out
 
 
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:

@@ -182,6 +182,39 @@ def build_mesh(axis_names: Sequence[str] = ("dp", "tp"),
     return mesh
 
 
+def build_submesh(axis_names: Sequence[str], axis_shape: Sequence[int],
+                  device=None) -> Optional[Mesh]:
+    """A Mesh of ``axis_shape`` over the FIRST ``prod(axis_shape)`` ranks
+    of the running process group, for a job that leaves the rest idle
+    (the pipelined trainers lower pp until it divides the layers).
+    Every rank must call it: ``new_group`` wants every rank of the world
+    for every group, members or not. Returns None on an idle rank.
+    Without a process group, or when the shape covers the world, it is
+    ``build_mesh``."""
+    size = int(np.prod(axis_shape, dtype=np.int64))
+    if not (dist.is_available() and dist.is_initialized()) or \
+            dist.get_world_size() == size:
+        return build_mesh(axis_names, axis_shape, device=device)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if size > world:
+        raise ValueError(f"axis shape {tuple(axis_shape)} needs {size} "
+                         f"ranks, the process group has {world}")
+    active = rank < size
+    mesh = Mesh(axis_names, axis_shape, rank=rank if active else 0,
+                device=device, backend=dist.get_backend())
+    groups = _new_groups(mesh)
+    if not active:
+        return None
+    mesh._groups = groups
+    return mesh
+
+
+def leave_process_group() -> None:
+    """Leave the process group, if this process joined one."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def backend_for(device) -> Tuple[str, str]:
     """(backend, why): ``nccl`` when every rank of the node has a card of
     its own, ``gloo`` when ranks share a card or run on the CPU."""

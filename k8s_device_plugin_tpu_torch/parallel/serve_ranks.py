@@ -117,16 +117,35 @@ def _ints(x):
     return None
 
 
+def _launches() -> str:
+    """This process's B1 and B2 launches so far, as JSON (the stop lines
+    of the daemon's log carry them)."""
+    import json
+
+    from k8s_device_plugin_tpu_torch.ops import attention, paged_attention
+
+    return json.dumps({c.name: c.launches for c in (
+        attention.FLASH_FWD, paged_attention.PAGED_ATTN)})
+
+
+def _groups(n: int, ack_timeout_s: float) -> tuple:
+    """The ``ctl`` and ``ack`` groups over the first ``n`` ranks."""
+    members = list(range(n))
+    return (dist.new_group(members, backend="gloo", timeout=_IDLE_TIMEOUT),
+            dist.new_group(members, backend="gloo",
+                           timeout=datetime.timedelta(
+                               seconds=ack_timeout_s)))
+
+
 class Ranks:
-    """The two gloo groups of one daemon's ranks (module docstring).
-    Every rank makes them, in the same place of its startup."""
+    """The two gloo groups of one daemon's ranks (module docstring), over
+    the ranks of its mesh (the first ``mesh.world`` of the process
+    group). Every rank makes them, in the same place of its startup; a
+    rank outside the mesh calls ``idle`` there instead."""
 
     def __init__(self, mesh, ack_timeout_s: float = ACK_TIMEOUT_S):
         self.rank, self.world = mesh.rank, mesh.world
-        self.ctl = dist.new_group(backend="gloo", timeout=_IDLE_TIMEOUT)
-        self.ack = dist.new_group(
-            backend="gloo",
-            timeout=datetime.timedelta(seconds=ack_timeout_s))
+        self.ctl, self.ack = _groups(mesh.world, ack_timeout_s)
 
     def send(self, msg) -> None:
         dist.broadcast_object_list([msg], src=0, group=self.ctl)
@@ -141,6 +160,13 @@ class Ranks:
         out = [None] * self.world
         dist.all_gather_object(out, status, group=self.ack)
         return out
+
+
+def idle(world: int, ack_timeout_s: float = ACK_TIMEOUT_S) -> None:
+    """A rank outside a mesh of the first ``world`` ranks takes its part
+    in making that mesh's ``Ranks`` groups, as ``new_group`` asks of
+    every rank of the process group."""
+    _groups(world, ack_timeout_s)
 
 
 def _status(ints, error) -> tuple:
@@ -291,8 +317,9 @@ class Leader:
             log.error("serving ranks ran %s calls", counts)
             return False
         log.info("serving ranks stopped: %d calls each, every one in "
-                 "step (rank 0: %d bytes all-reduced in %d all-reduces)",
-                 self.calls, comm.REDUCED.bytes, comm.REDUCED.calls)
+                 "step (rank 0: %d bytes all-reduced in %d all-reduces); "
+                 "kernel launches %s", self.calls, comm.REDUCED.bytes,
+                 comm.REDUCED.calls, _launches())
         return True
 
 
@@ -369,8 +396,8 @@ def follow(server, ranks: Ranks, record: bool = False) -> dict:
         if record:
             results.append(ints)
     log.info("rank %d stopped after %d calls (%d bytes all-reduced in "
-             "%d all-reduces)", ranks.rank, calls, comm.REDUCED.bytes,
-             comm.REDUCED.calls)
+             "%d all-reduces); kernel launches %s", ranks.rank, calls,
+             comm.REDUCED.bytes, comm.REDUCED.calls, _launches())
     return {"calls": calls, "results": results} if record \
         else {"calls": calls}
 

@@ -10,8 +10,10 @@ bfloat16 without ``ml_dtypes``: every definition of it but those is
 still the reference's (HANDOFF_CHANGED, HANDOFF_ADDED). PORTED lists
 the modules rewritten for the port whose reference imports jax
 (models/compile_cache.py, models/moe.py, ops/s2d.py, the four conv
-models and parallel/): walked like the rest, and keeping the reference's
-public names.
+models, the pipelined trainers and parallel/): walked like the rest, and
+keeping the reference's public names; the schedule half of
+parallel/pipeline_interleaved.py is pinned to the reference's
+(SCHEDULE_PINNED).
 """
 
 import ast
@@ -52,6 +54,29 @@ PORTED = {"models/compile_cache.py": ("CACHE_VERSION",
                                          "ring_attention_sharded"),
           "parallel/ulysses.py": ("ulysses_attention",
                                   "ulysses_attention_sharded"),
+          "parallel/pipeline.py": ("pipeline_apply", "shard_stage_params"),
+          "parallel/pipeline_1f1b.py": ("schedule_ticks", "peak_stash",
+                                        "pipeline_value_and_grad",
+                                        "spec_mentions", "tp_edge_reduce",
+                                        "opt_specs_like",
+                                        "validate_data_axis", "dp_reduce",
+                                        "microbatch_inputs",
+                                        "seeded_backward",
+                                        "assemble_result"),
+          "parallel/pipeline_interleaved.py": (
+              "InterleavedSchedule", "_rank_op_order", "build_schedule",
+              "interleave_stack", "interleaved_pipeline_value_and_grad"),
+          "models/transformer_pp.py": ("init_pp_params",
+                                       "init_embed_head_params",
+                                       "embed_apply", "head_loss",
+                                       "make_stage_fn", "make_pp_train_step",
+                                       "validate_cli_batch_flags", "main",
+                                       "reference_forward"),
+          "models/transformer_tp.py": ("tp_block_apply",
+                                       "init_tp_block_params",
+                                       "tp_block_specs",
+                                       "reference_block_apply",
+                                       "make_pp_tp_train_step", "main"),
           "models/alexnet.py": ("NUM_CLASSES", "IMAGE_SIZE", "AlexNet",
                                 "_stem_direct", "_stem_space_to_depth",
                                 "init_params", "forward", "loss_fn",
@@ -73,6 +98,11 @@ PORTED = {"models/compile_cache.py": ("CACHE_VERSION",
                                   "InceptionD", "InceptionE", "InceptionV3",
                                   "init_variables", "make_train_step",
                                   "benchmark", "main")}
+# parallel/pipeline_interleaved.py: the schedule half, numpy only, the
+# reference's definition for definition (its module imports jax inside
+# the executor, so it cannot be a copy)
+SCHEDULE_PINNED = ("(IDLE, FWD, BWD)", "InterleavedSchedule",
+                   "_rank_op_order", "build_schedule")
 # models/handoff.py: the definitions that differ from the reference's
 # (bfloat16 held as tagged 16-bit words) and those the port adds.
 HANDOFF_CHANGED = {"_np_dtype", "PageBlockBundle.to_bytes"}
@@ -220,3 +250,19 @@ def test_handoff_is_the_reference_but_its_bfloat16_wire():
     assert "ml_dtypes" in FORBIDDEN
     with open(os.path.join(PORT, rel)) as f:
         assert "import ml_dtypes" not in f.read()
+
+
+def test_interleaved_schedule_is_the_references():
+    """The port's parallel/pipeline_interleaved.py keeps the reference's
+    schedule definitions (the op constants, ``InterleavedSchedule`` and
+    its fields, ``_rank_op_order``, ``build_schedule`` with its clobber
+    and arrival checks) and their imports unchanged."""
+    rel = "parallel/pipeline_interleaved.py"
+    ref = _definitions(os.path.join(REF, rel))
+    port = _definitions(os.path.join(PORT, rel))
+    pinned = [n for n in ref if n in SCHEDULE_PINNED
+              or n.startswith("InterleavedSchedule.")
+              or n.startswith("from typing") or n == "import numpy as np"
+              or n.startswith("from dataclasses")]
+    assert len(pinned) > len(SCHEDULE_PINNED)
+    assert [n for n in pinned if port.get(n) != ref[n]] == []

@@ -26,7 +26,8 @@ rank 0's recorded calls replayed on a one-device engine give the same
 results. A follower whose call raises fails rank 0 within seconds. The
 daemon under ``torch.distributed.run`` at world 2 answers as the
 one-device daemon does and exits 0 on every rank after SIGTERM to rank
-0; ``--role prefill`` at world 2 is refused.
+0; ``--role prefill`` with ``--kv-cache rows`` at world 2 is refused,
+as on one rank.
 
 Exactness is asked of float32 only (every case here): tp sums a
 projection's partial products in another order than one device, which
@@ -452,8 +453,13 @@ def test_daemon_over_two_ranks_answers_as_one_device(tmp_path):
 
 
 def test_handoff_role_refused_over_ranks(monkeypatch, capsys):
+    """Over ranks the roles start (tests/test_torch_handoff_tp.py runs
+    them at 2 and 4 ranks); what stays refused is the reference's rule:
+    a role needs the paged continuous batcher."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit) as e:
-        serve_http.main(["--role", "prefill", "--tiny", "--device", "cpu"])
+        serve_http.main(["--role", "prefill", "--kv-cache", "rows",
+                         "--tiny", "--device", "cpu"])
     assert e.value.code == 2
-    assert "ROADMAP A8" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "--kv-cache paged" in err and "ROADMAP A8" not in err
