@@ -9,6 +9,23 @@ exits non-zero without a result:
 - ``build``: compiles every kernel source under
   k8s_device_plugin_tpu_torch/csrc/ with nvcc, all at once; ptxas's
   registers and spills of every kernel instance.
+- ``device_plugin``: the device-plugin daemon's path on this node, real
+  roots (cmd/device_plugin.py and what it calls). (a) ``get_gpu_chips``
+  finds the GPUs nvidia-smi lists, by UUID and normalised PCI address
+  (nvidia-smi's ``[N/A]`` where the host hides PCI info), every device
+  node opens, and where NVML loads and procfs shows GPUs both paths give
+  the same ones. (b) The best-effort policy places one GPU; the Allocate
+  core (plugin/allocation.py) gives its device specs (its node and the
+  control nodes) and ``NVIDIA_VISIBLE_DEVICES`` = ``CUDA_VISIBLE_DEVICES``
+  = its UUID. (c) A child process under exactly those envs loads B1's
+  library built by ``build`` (no nvcc), launches B1 once at
+  DP_CHILD_SHAPE against its plain version (TOL) and reports the UUID
+  CUDA shows, which must be the allotted one. (d) Where grpcio and
+  protobuf import: the daemon's own command under a kubelet stub on the
+  port's api copies: Register, the first ListAndWatch list (one Healthy
+  device per GPU with its NUMA node), GetPreferredAllocation and
+  Allocate equal to (b)'s, a clean exit on SIGTERM; otherwise the line
+  says ``"grpc": false`` and (a)–(c) decide.
 - ``kernel``: each kernel's wrapper against its plain PyTorch version on
   the card, at the serving path's shapes and edge cases, with the
   tolerances stated in KERNEL_CASES (a rank's share of the serving
@@ -267,6 +284,7 @@ import logging
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -4259,6 +4277,255 @@ def phase_convnets(counters) -> dict:
     return line
 
 
+# B1's shape in the allotted child: [batch, heads, seq, head_dim], bf16,
+# causal (small: the check is that the allotment lands on the card, not
+# B1's speed, which phase_kernel measures).
+DP_CHILD_SHAPE = (1, 4, 128, 64)
+
+# The allotted child: runs with exactly the Allocate envs, builds nothing
+# (B1's library is already under build/kernels from phase_build), launches
+# B1 once against its plain version and reports the card CUDA shows it.
+_DP_CHILD = r"""
+import json, os, sys, time
+t0 = time.perf_counter()
+import torch
+from k8s_device_plugin_tpu_torch.ops import _build, attention
+assert torch.cuda.device_count() == 1, torch.cuda.device_count()
+b, h, s, d = %(shape)r
+gen = torch.Generator(device="cuda").manual_seed(0)
+q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen)
+           .to(torch.bfloat16) for _ in range(3))
+out, lse = attention.flash_forward_cuda(q, k, v, True)
+torch.cuda.synchronize()
+ref_out, ref_lse = attention.reference_attention_with_lse(q, k, v, True)
+print(json.dumps({
+    "uuid": str(torch.cuda.get_device_properties(0).uuid),
+    "device": torch.cuda.get_device_name(0),
+    "finite": bool(torch.isfinite(out).all() and torch.isfinite(lse).all()),
+    "max_abs_err_out": (out.float() - ref_out.float()).abs().max().item(),
+    "max_abs_err_lse": (lse - ref_lse).abs().max().item(),
+    "launches": attention.FLASH_FWD.launches,
+    "nvcc_runs": _build.stats()["builds"],
+    "seconds": time.perf_counter() - t0,
+    "visible": {n: os.environ.get(n) for n in
+                ("CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES")},
+}))
+"""
+
+
+def _smi_gpus() -> list:
+    """[(uuid, normalised PCI address or None)] as nvidia-smi lists them
+    (its ``00000000:1B:00.0``, or ``[N/A]`` where the host hides it)."""
+    from k8s_device_plugin_tpu_torch.native import binding
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,uuid,pci.bus_id",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    rows = [[f.strip() for f in line.split(",")]
+            for line in out.splitlines() if line.strip()]
+    return [(uuid, binding.normalize_pci_address(bus)) for _, uuid, bus in rows]
+
+
+def _kubelet_stub(kubelet_dir: str):
+    """A kubelet's Registration service on ``<dir>/kubelet.sock`` over the
+    port's api copies: (server, registrations list, event set on each)."""
+    from concurrent import futures
+
+    import grpc
+
+    from k8s_device_plugin_tpu_torch.api import constants
+    from k8s_device_plugin_tpu_torch.api.deviceplugin.v1beta1 import (
+        api_grpc, api_pb2)
+
+    registrations, registered = [], threading.Event()
+
+    class Registration(api_grpc.RegistrationServicer):
+        def Register(self, request, context):
+            registrations.append(request)
+            registered.set()
+            return api_pb2.Empty()
+
+    server = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
+    api_grpc.add_RegistrationServicer_to_server(Registration(), server)
+    server.add_insecure_port(
+        f"unix://{os.path.join(kubelet_dir, constants.KUBELET_SOCKET_NAME)}")
+    server.start()
+    return server, registrations, registered
+
+
+def _daemon_under_kubelet(chips: dict, preferred: list, paths: list,
+                          envs: dict) -> dict:
+    """(d): the daemon's own command under the kubelet stub: Register,
+    the first ListAndWatch list, GetPreferredAllocation and Allocate over
+    its socket, equal to what the grpc-free core gave; SIGTERM with the
+    stream open, exit 0, socket gone."""
+    import tempfile
+
+    import grpc
+
+    from k8s_device_plugin_tpu_torch.api.deviceplugin.v1beta1 import (
+        api_grpc, api_pb2)
+    from k8s_device_plugin_tpu_torch.plugin import allocation
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="device_plugin_", dir=os.path.join(HERE, "build"))
+    kdir = os.path.join(work, "kubelet")
+    os.makedirs(kdir)
+    server, registrations, registered = _kubelet_stub(kdir)
+    log_path = os.path.join(work, "daemon.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "k8s_device_plugin_tpu_torch.cmd.device_plugin",
+             "--kubelet-dir", kdir, "--checkpoint-dir",
+             os.path.join(work, "ckpt"), "--driver-wait-seconds", "30"],
+            cwd=HERE, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        if not registered.wait(60):
+            raise AssertionError(
+                f"device_plugin: no registration in 60 s:\n"
+                f"{open(log_path).read()}")
+        register_s = time.perf_counter() - t0
+        reg = registrations[0]
+        if (reg.version, reg.resource_name, reg.endpoint,
+                reg.options.get_preferred_allocation_available) != (
+                "v1beta1", "nvidia.com/gpu", "nvidia.com_gpu", True):
+            raise AssertionError(f"device_plugin: registration {reg}")
+        channel = grpc.insecure_channel(f"unix://{os.path.join(kdir, reg.endpoint)}")
+        stub = api_grpc.DevicePluginStub(channel)
+        stream = stub.ListAndWatch(api_pb2.Empty())
+        first = next(stream)
+        listed = [(d.ID, d.health, [n.ID for n in d.topology.nodes])
+                  for d in first.devices]
+        want = [(c.key, "Healthy", [c.numa_node] if c.numa_node >= 0 else [])
+                for c in sorted(chips.values(), key=lambda c: c.index)]
+        if listed != want:
+            raise AssertionError(f"device_plugin: listed {listed}, want {want}")
+        pref = stub.GetPreferredAllocation(api_pb2.PreferredAllocationRequest(
+            container_requests=[api_pb2.ContainerPreferredAllocationRequest(
+                available_deviceIDs=[c.key for c in chips.values()],
+                allocation_size=1)]), timeout=30)
+        got_pref = list(pref.container_responses[0].deviceIDs)
+        resp = stub.Allocate(api_pb2.AllocateRequest(container_requests=[
+            api_pb2.ContainerAllocateRequest(devices_ids=got_pref)]), timeout=30)
+        car = resp.container_responses[0]
+        got_paths = [d.host_path for d in car.devices]
+        got_envs = {n: car.envs[n] for n in allocation.VISIBLE_ENVS
+                    if n in car.envs}
+        if (got_pref, got_paths, got_envs) != (preferred, paths, envs):
+            raise AssertionError(
+                f"device_plugin: daemon answered {got_pref} {got_paths} "
+                f"{got_envs}, the core {preferred} {paths} {envs}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        channel.close()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        server.stop(grace=0).wait()
+    if rc != 0 or os.path.exists(os.path.join(kdir, reg.endpoint)):
+        raise AssertionError(
+            f"device_plugin: daemon exit {rc}:\n{open(log_path).read()}")
+    return {"grpc": True, "register_s": register_s,
+            "listed": [list(x) for x in listed], "preferred": got_pref,
+            "allocation_id": car.envs.get("TPU_ALLOCATION_ID"),
+            "log": os.path.relpath(log_path, HERE),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_device_plugin() -> dict:
+    import importlib.util
+
+    from k8s_device_plugin_tpu_torch.allocator import (
+        BestEffortPolicy, devices_from_chips)
+    from k8s_device_plugin_tpu_torch.discovery import chips as chips_mod
+    from k8s_device_plugin_tpu_torch.discovery import gpu_topology
+    from k8s_device_plugin_tpu_torch.native import binding
+    from k8s_device_plugin_tpu_torch.plugin import allocation
+
+    t_phase = time.perf_counter()
+    line = {"phase": "device_plugin", "ok": True}
+    # (a) discovery on the real roots
+    t0 = time.perf_counter()
+    chips = chips_mod.get_gpu_chips()
+    line["discovery_ms"] = (time.perf_counter() - t0) * 1e3
+    smi = _smi_gpus()
+    found = sorted((c.uuid, c.pci_address or None) for c in chips.values())
+    if found != sorted(smi):
+        raise AssertionError(f"device_plugin: discovery {found}, nvidia-smi {smi}")
+    if not all(chips_mod.dev_functional(c) for c in chips.values()):
+        raise AssertionError("device_plugin: a device node does not open")
+    walked = chips_mod._discover_procfs("/sys", "/dev", "/proc")
+    line["nvml"] = binding.version()
+    line["procfs_gpus"] = len(walked)
+    if binding.available() and walked:
+        def fields(c):
+            return (c.index, c.pci_address, c.dev_path, c.uuid, c.model,
+                    c.numa_node, c.extra_dev_paths)
+        by_index = sorted(chips.values(), key=lambda c: c.index)
+        if [fields(c) for c in by_index] != [fields(c) for c in walked]:
+            raise AssertionError(
+                f"device_plugin: NVML {[fields(c) for c in by_index]} != "
+                f"procfs {[fields(c) for c in walked]}")
+    line["gpus"] = [{"key": c.key, "minor": c.index, "pci": c.pci_address,
+                     "uuid": c.uuid, "model": c.model, "numa": c.numa_node,
+                     "generation": c.generation, "nvlinks": len(c.nvlinks),
+                     "dev_path": c.dev_path,
+                     "extra_dev_paths": list(c.extra_dev_paths)}
+                    for c in chips.values()]
+    # (b) placement and the allocate core
+    t0 = time.perf_counter()
+    chip_list = sorted(chips.values(), key=lambda c: c.index)
+    devices = devices_from_chips(chip_list)
+    policy = BestEffortPolicy()
+    policy.init(devices, gpu_topology(chip_list))
+    preferred = policy.allocate([d.id for d in devices], [], 1)
+    allotted = [c for c in chip_list if c.key in preferred]
+    paths, envs = allocation.container_allocation(allotted)
+    line["placement_ms"] = (time.perf_counter() - t0) * 1e3
+    (gpu,) = allotted
+    if paths[0] != gpu.dev_path or not {"nvidiactl", "nvidia-uvm"} \
+            <= {os.path.basename(p) for p in paths[1:]}:
+        raise AssertionError(f"device_plugin: device specs {paths}")
+    if envs != {n: gpu.uuid for n in allocation.VISIBLE_ENVS}:
+        raise AssertionError(f"device_plugin: envs {envs}")
+    line.update(preferred=preferred, device_specs=paths, envs=envs)
+    # (c) a child under exactly those envs runs B1 on the allotted GPU
+    env = {k: v for k, v in os.environ.items()
+           if k not in allocation.VISIBLE_ENVS}
+    env.update(envs)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _DP_CHILD % {"shape": DP_CHILD_SHAPE}],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"device_plugin: child failed:\n{proc.stderr}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    child["wall_s"] = time.perf_counter() - t0
+    err = max(child["max_abs_err_out"], child["max_abs_err_lse"])
+    if not child["finite"] or err > TOL["bfloat16"]:
+        raise AssertionError(f"device_plugin: child's B1 {child}")
+    if "GPU-" + child["uuid"] != gpu.uuid:
+        raise AssertionError(
+            f"device_plugin: child ran on {child['uuid']}, allotted {gpu.uuid}")
+    if child["launches"] != 1 or child["nvcc_runs"] != 0:
+        raise AssertionError(f"device_plugin: child {child}")
+    child["shape"], child["tol"] = list(DP_CHILD_SHAPE), TOL["bfloat16"]
+    line["child"] = child
+    # (d) the daemon under a kubelet, where grpcio and protobuf import
+    if importlib.util.find_spec("grpc") and \
+            importlib.util.find_spec("google.protobuf"):
+        line["daemon"] = _daemon_under_kubelet(chips, preferred, paths, envs)
+        line["grpc"] = True
+    else:
+        line["grpc"] = False
+    line["seconds"] = time.perf_counter() - t_phase
+    return line
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4286,6 +4553,7 @@ def main() -> int:
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "device": torch.cuda.get_device_name(0)})
     _jline(phase_build())
+    _jline(phase_device_plugin())
     line, summary = phase_kernel()
     _jline(line)
     line, bwd_summaries = phase_kernel_bwd()

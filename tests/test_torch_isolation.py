@@ -8,16 +8,22 @@ equal to their source after the import-prefix substitution; COPIES is
 the list. models/handoff.py left it when its bundles learned to carry
 bfloat16 without ``ml_dtypes``: every definition of it but those is
 still the reference's (HANDOFF_CHANGED, HANDOFF_ADDED). PORTED lists
-the modules rewritten for the port whose reference imports jax
+the modules rewritten for the port: those whose reference imports jax
 (models/compile_cache.py, models/moe.py, ops/s2d.py, the four conv
-models, the pipelined trainers and parallel/): walked like the rest, and
-keeping the reference's public names; the schedule half of
-parallel/pipeline_interleaved.py is pinned to the reference's
-(SCHEDULE_PINNED).
+models, the pipelined trainers and parallel/) and the device-plugin
+daemon's rewrites for NVIDIA GPUs: walked like the rest, and keeping the
+reference's public names (RENAMED pairs a reference name with its GPU
+name); the schedule half of parallel/pipeline_interleaved.py is pinned to
+the reference's (SCHEDULE_PINNED). ADDED lists port modules that hold a
+part of a reference module. The daemon's discovery, topology, allocator
+and allocate core import without grpc and google.protobuf
+(GRPC_FREE_CORE).
 """
 
 import ast
 import os
+import subprocess
+import sys
 
 import pytest
 
@@ -33,6 +39,17 @@ COPIES = [
     "utils/chiplog.py", "utils/faults.py", "utils/retry.py",
     "utils/watchdog.py",
     "models/tokenizer.py", "models/serve_text.py", "models/kv_cache.py",
+    # the device-plugin daemon (slice 15)
+    "utils/sysfs.py", "utils/configfile.py", "version.py",
+    "api/__init__.py", "api/deviceplugin/__init__.py",
+    "api/deviceplugin/v1beta1/__init__.py",
+    "api/deviceplugin/v1beta1/api_pb2.py",
+    "api/deviceplugin/v1beta1/api_grpc.py",
+    "api/metricssvc/__init__.py", "api/metricssvc/metricssvc_pb2.py",
+    "api/metricssvc/metricssvc_grpc.py",
+    "dpm/checkpoint.py", "dpm/healthsm.py", "dpm/inotify.py",
+    "dpm/lister.py", "dpm/manager.py", "dpm/plugin_server.py",
+    "exporter/health.py", "native/__init__.py", "cmd/__init__.py",
 ]
 # Port modules whose reference counterpart imports jax: walked like every
 # port module, and holding the reference's public names.
@@ -97,7 +114,90 @@ PORTED = {"models/compile_cache.py": ("CACHE_VERSION",
                                   "InceptionA", "InceptionB", "InceptionC",
                                   "InceptionD", "InceptionE", "InceptionV3",
                                   "init_variables", "make_train_step",
-                                  "benchmark", "main")}
+                                  "benchmark", "main"),
+          # the device-plugin daemon (slice 15): rewrites for NVIDIA GPUs
+          "api/constants.py": ("HEALTHY", "UNHEALTHY", "VERSION",
+                               "DEVICE_PLUGIN_PATH", "KUBELET_SOCKET_NAME",
+                               "KUBELET_SOCKET", "RESOURCE_NAMESPACE"),
+          "native/binding.py": ("available", "version", "enumerate_chips",
+                                "_load"),
+          "discovery/chips.py": ("DiscoveryError",
+                                 "fatal_on_driver_unavailable",
+                                 "dev_functional", "is_homogeneous",
+                                 "generation_name", "product_name",
+                                 "_discover_native", "_read_pci_attrs"),
+          "discovery/topology.py": (),
+          "discovery/__init__.py": ("DiscoveryError", "dev_functional",
+                                    "fatal_on_driver_unavailable",
+                                    "generation_name", "is_homogeneous",
+                                    "product_name"),
+          "allocator/__init__.py": ("AllocationError", "BestEffortPolicy",
+                                    "Device", "Policy", "build_pair_weights",
+                                    "devices_from_chips", "pair_weight"),
+          "allocator/allocator.py": ("AllocationError", "Policy"),
+          "allocator/device.py": ("Device", "SAME_NUMA_WEIGHT",
+                                  "DIFF_NUMA_WEIGHT", "devices_from_chips",
+                                  "pair_weight", "build_pair_weights",
+                                  "subset_weight", "covered_chips",
+                                  "is_contiguous_selection"),
+          "allocator/besteffort_policy.py": (
+              "INVALID_SIZE", "INVALID_AVAILABLE", "INVALID_REQUIRED",
+              "INVALID_REQ_AVAILABLE", "INVALID_INIT", "NO_CANDIDATE_FOUND",
+              "_EXHAUSTIVE_LIMIT", "BestEffortPolicy"),
+          "plugin/__init__.py": ("PluginConfig", "Strategy",
+                                 "get_resource_list", "parse_strategy"),
+          "plugin/config.py": ("PluginConfig",),
+          "plugin/resource_naming.py": ("Strategy", "StrategyError",
+                                        "parse_strategy",
+                                        "get_resource_list"),
+          "plugin/cdi.py": ("CDI_SPEC_DIR", "CDI_KIND", "device_cdi_name",
+                            "build_spec", "cleanup_stale_specs",
+                            "write_spec"),
+          "plugin/plugin.py": (),
+          "dpm/__init__.py": ("CheckpointStore", "DevicePluginServer",
+                              "HealthConfig", "HealthStateMachine", "Lister",
+                              "Manager"),
+          "exporter/__init__.py": ("DEFAULT_HEALTH_SOCKET", "get_tpu_health",
+                                   "populate_per_tpu_health"),
+          "cmd/device_plugin.py": ("build_arg_parser", "driver_present",
+                                   "main", "shutdown_cleanup")}
+# Rewrites whose counterpart of a reference name has a GPU name: (module,
+# reference name, port name).
+RENAMED = [
+    ("discovery/chips.py", "TPUChip", "GPUChip"),
+    ("discovery/chips.py", "get_tpu_chips", "get_gpu_chips"),
+    ("discovery/chips.py", "GOOGLE_VENDOR_ID", "NVIDIA_VENDOR_ID"),
+    ("discovery/chips.py", "_discover_accel_class", "_discover_procfs"),
+    ("discovery/topology.py", "TPUTopology", "GPUTopology"),
+    ("discovery/__init__.py", "TPUChip", "GPUChip"),
+    ("discovery/__init__.py", "TPUTopology", "GPUTopology"),
+    ("discovery/__init__.py", "get_tpu_chips", "get_gpu_chips"),
+    ("api/constants.py", "RESOURCE_TPU", "RESOURCE_GPU"),
+    ("allocator/device.py", "largest_free_submesh", "largest_free_clique"),
+    ("allocator/device.py", "candidate_submesh_selections",
+     "candidate_clique_selections"),
+    ("allocator/device.py", "ICI_NEIGHBOR_WEIGHT", "NVLINK_WEIGHT"),
+    ("allocator/device.py", "NO_PATH_WEIGHT", "OTHER_WEIGHT"),
+    ("plugin/plugin.py", "TPUDevicePlugin", "GPUDevicePlugin"),
+    ("plugin/plugin.py", "TPULister", "GPULister"),
+]
+# Port modules with no file of their own in the reference: (module, the
+# reference module whose part it holds).
+ADDED = {"plugin/allocation.py": "plugin/plugin.py"}
+# The device-plugin slice's packages: every module in them is a copy, a
+# rewrite or an addition.
+DAEMON_PACKAGES = ("api", "native", "discovery", "allocator", "plugin",
+                   "dpm", "exporter", "cmd")
+# What imports without grpc and google.protobuf: discovery, topology, the
+# allocator and the allocate core (and what they import).
+GRPC_FREE_CORE = (
+    "k8s_device_plugin_tpu_torch.discovery",
+    "k8s_device_plugin_tpu_torch.discovery.topology",
+    "k8s_device_plugin_tpu_torch.native.binding",
+    "k8s_device_plugin_tpu_torch.allocator",
+    "k8s_device_plugin_tpu_torch.plugin.allocation",
+    "k8s_device_plugin_tpu_torch.plugin.resource_naming",
+)
 # parallel/pipeline_interleaved.py: the schedule half, numpy only, the
 # reference's definition for definition (its module imports jax inside
 # the executor, so it cannot be a copy)
@@ -266,3 +366,97 @@ def test_interleaved_schedule_is_the_references():
               or n.startswith("from dataclasses")]
     assert len(pinned) > len(SCHEDULE_PINNED)
     assert [n for n in pinned if port.get(n) != ref[n]] == []
+
+
+@pytest.mark.parametrize("rel,ref_name,port_name", RENAMED)
+def test_renamed_counterparts(rel, ref_name, port_name):
+    assert ref_name in _module_names(os.path.join(REF, rel))
+    assert port_name in _module_names(os.path.join(PORT, rel))
+
+
+def test_daemon_packages_are_covered():
+    """Every module of the daemon's packages is a copy, a rewrite or an
+    addition, and every addition holds a part of a reference module."""
+    found = set()
+    for pkg in DAEMON_PACKAGES:
+        for root, _, files in os.walk(os.path.join(PORT, pkg)):
+            found |= {os.path.relpath(os.path.join(root, f), PORT)
+                      for f in files if f.endswith(".py")}
+    listed = set(COPIES) | set(PORTED) | set(ADDED)
+    assert found - listed == set()
+    for rel, ref in ADDED.items():
+        assert not os.path.exists(os.path.join(REF, rel))
+        assert os.path.exists(os.path.join(REF, ref))
+
+
+def _imports_grpc(path):
+    return any(root == "grpc" or (root == "google" and "protobuf" in mod)
+               for root, mod in _imported_modules(path))
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = " ".join(a.name for a in node.names)
+            yield node.module.split(".")[0], f"{node.module} {names}"
+
+
+def test_grpc_free_core_imports_with_grpc_and_protobuf_blocked():
+    """A fresh interpreter with ``grpc`` and ``google.protobuf`` set to
+    None in ``sys.modules`` imports the core, places a request and builds
+    a container's edits; the port modules it loaded import neither, and
+    every port module that does lies outside it."""
+    script = (
+        "import sys, json\n"
+        "for m in ('grpc', 'google', 'google.protobuf'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {GRPC_FREE_CORE!r}:\n"
+        "    __import__(m)\n"
+        "from k8s_device_plugin_tpu_torch.allocator import (\n"
+        "    BestEffortPolicy, devices_from_chips)\n"
+        "from k8s_device_plugin_tpu_torch.discovery import GPUChip, gpu_topology\n"
+        "from k8s_device_plugin_tpu_torch.plugin.allocation import "
+        "container_allocation\n"
+        "chips = [GPUChip(index=i, pci_address=f'0000:0{i}:00.0', "
+        "dev_path=f'/dev/nvidia{i}', mesh_index=i, uuid=f'GPU-{i}', "
+        "extra_dev_paths=('/dev/nvidiactl',)) for i in range(2)]\n"
+        "pol = BestEffortPolicy()\n"
+        "pol.init(devices_from_chips(chips), gpu_topology(chips))\n"
+        "got = pol.allocate([c.key for c in chips], [], 1)\n"
+        "paths, envs = container_allocation(c for c in chips "
+        "if c.key in got)\n"
+        "print(json.dumps({'got': got, 'paths': paths, 'envs': envs,\n"
+        "    'loaded': sorted(m for m in sys.modules if m.startswith(\n"
+        "        'k8s_device_plugin_tpu_torch') and sys.modules[m])}))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    import json
+
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["got"] == ["0000:00:00.0"]
+    assert out["paths"] == ["/dev/nvidia0", "/dev/nvidiactl"]
+    assert out["envs"] == {"NVIDIA_VISIBLE_DEVICES": "GPU-0",
+                           "CUDA_VISIBLE_DEVICES": "GPU-0"}
+    loaded = set()
+    for mod in out["loaded"]:
+        rel = mod.split(".", 1)[1].replace(".", os.sep) \
+            if "." in mod else ""
+        path = os.path.join(PORT, rel + ".py")
+        if not os.path.exists(path):
+            path = os.path.join(PORT, rel, "__init__.py")
+        loaded.add(os.path.relpath(path, PORT))
+        assert not _imports_grpc(path), f"{mod} imports grpc or protobuf"
+    assert {"plugin/allocation.py", "allocator/besteffort_policy.py",
+            "discovery/topology.py", "native/binding.py"} <= loaded
+    grpc_users = {os.path.relpath(p, PORT) for p in _port_sources()
+                  if p.startswith(PORT) and _imports_grpc(p)}
+    assert "plugin/plugin.py" in grpc_users
+    assert "dpm/plugin_server.py" in grpc_users
+    assert grpc_users & loaded == set()
