@@ -102,7 +102,13 @@ class GPUChip:
     def key(self) -> str:
         """The GPU's kubelet device id: its PCI address (the reference's
         rule), or its UUID where the PCI address is unknown."""
-        return self.pci_address or self.uuid
+        return device_key(self.pci_address, self.uuid)
+
+
+def device_key(pci_address: str, uuid: str) -> str:
+    """``GPUChip.key`` of a GPU with this PCI address ("" where unknown)
+    and UUID."""
+    return pci_address or uuid
 
 
 def _control_nodes(dev_root: str) -> Tuple[str, ...]:

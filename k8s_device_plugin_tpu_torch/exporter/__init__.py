@@ -1,8 +1,10 @@
-"""L2 health services: per-device health from the metrics exporter socket.
+"""L2 health services: per-GPU health from the metrics exporter socket.
 
-Counterpart of the reference's internal/pkg/exporter (health.go). Only
-the health merge is ported; the exporter daemon and its runtime and
-telemetry pollers are not yet (ROADMAP A10).
+Counterpart of the reference's internal/pkg/exporter (health.go): the
+device plugin's health merge (health.py), and the readers the exporter
+daemon (cmd/metrics_exporter.py) serves: temperature and PCIe link from
+sysfs or NVML (telemetry.py), device memory and utilisation from NVML
+behind a poll state and a circuit breaker (runtime.py).
 """
 
 from k8s_device_plugin_tpu_torch.exporter.health import (

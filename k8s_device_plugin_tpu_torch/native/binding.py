@@ -11,6 +11,10 @@ discovery walks ``/proc/driver/nvidia`` and ``/sys`` instead.
 NVML describes the host the process runs on: it takes no sysfs or dev
 root. ``enumerate_chips`` uses the roots only for what NVML does not
 report (the NUMA node from sysfs, the device node under the dev root).
+
+``sample`` reads one GPU's memory, utilisation, temperature and PCIe
+link for the metrics exporter. Its queries are optional: a driver
+whose library lacks one still enumerates, and the field reads None.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ _UUID_LEN = 96       # NVML_DEVICE_UUID_V2_BUFFER_SIZE
 _NAME_LEN = 96       # NVML_DEVICE_NAME_V2_BUFFER_SIZE
 _VERSION_LEN = 80    # NVML_SYSTEM_DRIVER_VERSION_BUFFER_SIZE
 _NVML_FEATURE_ENABLED = 1
+NVML_TEMPERATURE_GPU = 0  # nvmlTemperatureSensors_t: the GPU die
 
 _lib: Optional[ctypes.CDLL] = None
 _load_attempted = False
@@ -59,6 +64,24 @@ class PciInfo(ctypes.Structure):
     ]
 
 
+class Memory(ctypes.Structure):
+    """nvmlMemory_t (nvml.h): what nvmlDeviceGetMemoryInfo fills, bytes."""
+
+    _fields_ = [
+        ("total", ctypes.c_ulonglong),
+        ("free", ctypes.c_ulonglong),
+        ("used", ctypes.c_ulonglong),
+    ]
+
+
+class Utilization(ctypes.Structure):
+    """nvmlUtilization_t (nvml.h): percent of the last sample period in
+    which a kernel ran (``gpu``) and device memory was read or written
+    (``memory``)."""
+
+    _fields_ = [("gpu", ctypes.c_uint), ("memory", ctypes.c_uint)]
+
+
 def normalize_pci_address(bus_id: str) -> Optional[str]:
     """``00000000:1B:00.0`` (nvidia-smi, NVML) or ``1b:00.0`` ->
     ``0000:1b:00.0``, the sysfs and procfs form; None when unparseable."""
@@ -71,7 +94,7 @@ def normalize_pci_address(bus_id: str) -> Optional[str]:
 
 def _declare(lib: ctypes.CDLL) -> None:
     """argtypes and restype of every NVML function the port calls;
-    AttributeError when one is missing."""
+    AttributeError when one that discovery needs is missing."""
     handle_p = ctypes.POINTER(ctypes.c_void_p)
     uint_p = ctypes.POINTER(ctypes.c_uint)
     sigs = {
@@ -91,6 +114,22 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    # The queries sample() makes, declared where the library has them: a
+    # library without one of them still serves discovery.
+    optional = {
+        "nvmlDeviceGetHandleByUUID": [ctypes.c_char_p, handle_p],
+        "nvmlDeviceGetMemoryInfo": [ctypes.c_void_p, ctypes.POINTER(Memory)],
+        "nvmlDeviceGetUtilizationRates": [
+            ctypes.c_void_p, ctypes.POINTER(Utilization)],
+        "nvmlDeviceGetTemperature": [ctypes.c_void_p, ctypes.c_uint, uint_p],
+        "nvmlDeviceGetCurrPcieLinkGeneration": [ctypes.c_void_p, uint_p],
+        "nvmlDeviceGetCurrPcieLinkWidth": [ctypes.c_void_p, uint_p],
+    }
+    for name, argtypes in optional.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -201,3 +240,52 @@ def enumerate_chips(sysfs_root: str, dev_root: str) -> Optional[List[dict]]:
         })
     return out
 
+
+# The keys of sample()'s result besides ``errors``.
+SAMPLE_FIELDS = ("memory_total", "memory_free", "memory_used", "util_gpu",
+                 "util_memory", "temp_c", "pcie_gen", "pcie_width")
+
+
+def sample(uuid: str) -> Optional[dict]:
+    """One GPU's live state by UUID: ``memory_total`` / ``memory_free`` /
+    ``memory_used`` (bytes), ``util_gpu`` / ``util_memory`` (percent),
+    ``temp_c`` (the die, Celsius), ``pcie_gen`` / ``pcie_width`` (the
+    current link). A field NVML refuses (NOT_SUPPORTED, or any other
+    error, or a library without the query) is None, and ``errors`` maps
+    the NVML function to its status (-1: the library lacks it). None
+    without NVML or when no GPU has this UUID."""
+    lib = _load()
+    if lib is None:
+        return None
+    by_uuid = getattr(lib, "nvmlDeviceGetHandleByUUID", None)
+    if by_uuid is None:
+        return None
+    handle = ctypes.c_void_p()
+    if by_uuid(uuid.encode(), ctypes.byref(handle)) != NVML_SUCCESS:
+        return None
+    out = dict.fromkeys(SAMPLE_FIELDS)
+    errors = {}
+
+    def query(name, *args):
+        fn = getattr(lib, name, None)
+        rc = -1 if fn is None else fn(handle, *args)
+        if rc != NVML_SUCCESS:
+            errors[name] = rc
+        return rc == NVML_SUCCESS
+
+    mem = Memory()
+    if query("nvmlDeviceGetMemoryInfo", ctypes.byref(mem)):
+        out.update(memory_total=mem.total, memory_free=mem.free,
+                   memory_used=mem.used)
+    util = Utilization()
+    if query("nvmlDeviceGetUtilizationRates", ctypes.byref(util)):
+        out.update(util_gpu=util.gpu, util_memory=util.memory)
+    for key, name, args in (
+            ("temp_c", "nvmlDeviceGetTemperature", (NVML_TEMPERATURE_GPU,)),
+            ("pcie_gen", "nvmlDeviceGetCurrPcieLinkGeneration", ()),
+            ("pcie_width", "nvmlDeviceGetCurrPcieLinkWidth", ())):
+        value = ctypes.c_uint()
+        if query(name, *args, ctypes.byref(value)):
+            out[key] = value.value
+    out["errors"] = errors
+    return out

@@ -17,6 +17,10 @@ raises fails the call with its traceback, and the others are stopped.
 temporary directory, not through the process arguments: a start blocks
 until its child has read those, and the child reads them only after
 importing torch, so large arguments would start the ranks one by one.
+Each rank's result comes back pickled to bytes, tensors' data included:
+through the queue's own pickler a tensor would come as shared storage
+that the parent opens from the rank's process, which a rank that has
+returned may already have left.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ def _rank_main(call: str, rank: int, world: int, store: str, device: str,
             fn, args = pickle.load(f)
         init_process_group(resolve_device(device), f"file://{store}", rank,
                            world)
-        results.put((rank, True, fn(*args)))
+        results.put((rank, True, pickle.dumps(fn(*args))))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
         raise
@@ -90,7 +94,7 @@ def spawn(fn, world: int, *args, device: str = "cpu",
                         break
                     continue
                 if ok:
-                    out[rank] = value
+                    out[rank] = pickle.loads(value)
                 else:
                     errors.append(f"rank {rank}:\n{value}")
                     break

@@ -7,7 +7,8 @@ machine has no JAX:
 Discovery on the real roots finds the GPUs nvidia-smi lists, with the
 same UUIDs and PCI addresses (nvidia-smi's ``00000000:1B:00.0`` and
 ``[N/A]`` normalised; a host whose NVML hides PCI info shows neither),
-and every device node opens.
+and every device node opens. NVML's ``sample`` of each GPU reads the
+memory total nvidia-smi prints.
 """
 
 import subprocess
@@ -45,3 +46,18 @@ def test_discovery_on_the_real_roots_equals_nvidia_smi(cuda):
     assert got == sorted(smi_gpus())
     assert all(chips_mod.dev_functional(c) for c in chips.values())
     assert len(chips) == len({c.key for c in chips.values()})
+
+
+def test_nvml_sample_memory_total_equals_nvidia_smi(cuda):
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=uuid,memory.total",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    rows = [[f.strip() for f in line.split(",")]
+            for line in out.splitlines() if line.strip()]
+    assert rows
+    for uuid, mib in rows:
+        got = binding.sample(uuid)
+        assert got is not None, uuid
+        # nvidia-smi prints whole MiB
+        assert abs(got["memory_total"] - int(mib) * 2**20) < 2**20

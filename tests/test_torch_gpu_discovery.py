@@ -130,20 +130,40 @@ def make_gpu_tree(root, gpus, procfs=True, pci=True, control=True,
     return sys_root, dev_root, proc_root
 
 
+def live_fields(g):
+    """A GPU's live state as the fake NVML reports it: 80 GB HBM3
+    (81559 MiB, what nvidia-smi shows for an H100 SXM), distinct values
+    per minor, a PCIe 5 x16 link."""
+    m = g["minor"]
+    return {"memory_total": 81559 << 20, "memory_used": (m + 1) << 30,
+            "util_gpu": 10 * m + 5, "util_memory": 2 * m + 1,
+            "temp_c": 30 + m, "pcie_gen": 5, "pcie_width": 16}
+
+
 class FakeNVML:
     """libnvidia-ml's calling convention over a list of GPUs: handles are
     1-based indices, outputs go through ctypes byref / string buffers,
     every call returns an NVML status. ``pci=False`` answers PCI info
-    NOT_SUPPORTED (3), as the H100 host's virtualising runtime does."""
+    NOT_SUPPORTED (3), as the H100 host's virtualising runtime does.
+
+    The exporter's queries read ``live`` (uuid -> ``live_fields``, which
+    a test may change); ``refuse`` names the functions answered
+    NOT_SUPPORTED, ``lacks`` those the library does not have."""
 
     NOT_SUPPORTED = 3
     INVALID_ARGUMENT = 2
+    NOT_FOUND = 6
 
-    def __init__(self, gpus, pci=True, driver="580.159.03"):
+    def __init__(self, gpus, pci=True, driver="580.159.03", refuse=(),
+                 lacks=()):
         self.gpus = list(gpus)
         self.pci = pci
         self.driver = driver
         self.calls = 0
+        self.live = {g["uuid"]: live_fields(g) for g in self.gpus}
+        self.refuse = set(refuse)
+        for name in lacks:
+            setattr(self, name, None)  # getattr(lib, name, None) is None
 
     def _gpu(self, handle):
         self.calls += 1
@@ -200,6 +220,55 @@ class FakeNVML:
         if link >= len(g["nvlinks"]):
             return self.INVALID_ARGUMENT
         pci._obj.busId = self._bus_id(g["nvlinks"][link])
+        return 0
+
+    def nvmlDeviceGetHandleByUUID(self, uuid, handle):
+        for i, g in enumerate(self.gpus):
+            if g["uuid"].encode() == uuid:
+                handle._obj.value = i + 1
+                return 0
+        return self.NOT_FOUND
+
+    def _live(self, name, handle):
+        """The GPU's live fields, or None where ``name`` is refused."""
+        g = self._gpu(handle)
+        return None if name in self.refuse else self.live[g["uuid"]]
+
+    def nvmlDeviceGetMemoryInfo(self, handle, mem):
+        v = self._live("nvmlDeviceGetMemoryInfo", handle)
+        if v is None:
+            return self.NOT_SUPPORTED
+        mem._obj.total = v["memory_total"]
+        mem._obj.used = v["memory_used"]
+        mem._obj.free = v["memory_total"] - v["memory_used"]
+        return 0
+
+    def nvmlDeviceGetUtilizationRates(self, handle, util):
+        v = self._live("nvmlDeviceGetUtilizationRates", handle)
+        if v is None:
+            return self.NOT_SUPPORTED
+        util._obj.gpu, util._obj.memory = v["util_gpu"], v["util_memory"]
+        return 0
+
+    def nvmlDeviceGetTemperature(self, handle, sensor, temp):
+        v = self._live("nvmlDeviceGetTemperature", handle)
+        if v is None or sensor != 0:
+            return self.NOT_SUPPORTED
+        temp._obj.value = v["temp_c"]
+        return 0
+
+    def nvmlDeviceGetCurrPcieLinkGeneration(self, handle, gen):
+        v = self._live("nvmlDeviceGetCurrPcieLinkGeneration", handle)
+        if v is None:
+            return self.NOT_SUPPORTED
+        gen._obj.value = v["pcie_gen"]
+        return 0
+
+    def nvmlDeviceGetCurrPcieLinkWidth(self, handle, width):
+        v = self._live("nvmlDeviceGetCurrPcieLinkWidth", handle)
+        if v is None:
+            return self.NOT_SUPPORTED
+        width._obj.value = v["pcie_width"]
         return 0
 
 

@@ -13,8 +13,10 @@ the modules rewritten for the port: those whose reference imports jax
 models, the pipelined trainers and parallel/) and the device-plugin
 daemon's rewrites for NVIDIA GPUs: walked like the rest, and keeping the
 reference's public names (RENAMED pairs a reference name with its GPU
-name); the schedule half of parallel/pipeline_interleaved.py is pinned to
-the reference's (SCHEDULE_PINNED). ADDED lists port modules that hold a
+name; the metrics exporter's ``--tpu-env-path`` is its ``--proc-root``,
+checked with its flags in tests/test_torch_metrics_exporter.py); the
+schedule half of parallel/pipeline_interleaved.py is pinned to the
+reference's (SCHEDULE_PINNED). ADDED lists port modules that hold a
 part of a reference module. The daemon's discovery, topology, allocator
 and allocate core import without grpc and google.protobuf
 (GRPC_FREE_CORE).
@@ -160,7 +162,25 @@ PORTED = {"models/compile_cache.py": ("CACHE_VERSION",
           "exporter/__init__.py": ("DEFAULT_HEALTH_SOCKET", "get_tpu_health",
                                    "populate_per_tpu_health"),
           "cmd/device_plugin.py": ("build_arg_parser", "driver_present",
-                                   "main", "shutdown_cleanup")}
+                                   "main", "shutdown_cleanup"),
+          # the metrics exporter (slice 16): NVML where the reference
+          # reads sysfs alone and libtpu's runtime-metrics service
+          "exporter/telemetry.py": ("ChipTelemetry", "_device_dir",
+                                    "read_chip_telemetry"),
+          "exporter/runtime.py": ("DEFAULT_RUNTIME_METRICS_ADDR",
+                                  "QUERY_TIMEOUT_S", "BREAKER_THRESHOLD",
+                                  "BREAKER_RESET_S", "HBM_USAGE",
+                                  "HBM_TOTAL", "DUTY_CYCLE", "PollState",
+                                  "poll_state", "breaker",
+                                  "configure_breaker", "AcceleratorRuntime",
+                                  "RuntimeMetrics", "read_runtime_metrics",
+                                  "_read_runtime_metrics_once",
+                                  "_note_failure"),
+          "cmd/metrics_exporter.py": ("ChipHealthService", "serve",
+                                      "serve_http_metrics",
+                                      "chip_metric_text",
+                                      "start_chip_poll_watchdog",
+                                      "build_arg_parser", "main")}
 # Rewrites whose counterpart of a reference name has a GPU name: (module,
 # reference name, port name).
 RENAMED = [
